@@ -1,0 +1,76 @@
+"""SphereSOA: the sphere scene as a structure of arrays.
+
+Written by hand as a frozen dataclass of tensors; the JAX package's
+counterpart (rays1bench_tpu/scene/soa_spheres.py) is a pytree generated by
+tools/soa_codegen.py. Only the columns and the builder's add/finalize are
+ported. Rows whose radius is 0.0 are placeholders (rayweek1.cpp:575-576).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+COLUMNS = ("center_x", "center_y", "center_z", "radius", "mat_type",
+           "albedo_x", "albedo_y", "albedo_z", "fuzz", "ref_idx")
+
+# Placeholder row values; every column but mat_type (int32) is float32.
+_PAD = {name: 0.0 for name in COLUMNS}
+_PAD["mat_type"] = 0
+_PAD["ref_idx"] = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SphereSOA:
+    """Every column is a length-N tensor on one device."""
+
+    center_x: torch.Tensor
+    center_y: torch.Tensor
+    center_z: torch.Tensor
+    radius: torch.Tensor
+    mat_type: torch.Tensor
+    albedo_x: torch.Tensor
+    albedo_y: torch.Tensor
+    albedo_z: torch.Tensor
+    fuzz: torch.Tensor
+    ref_idx: torch.Tensor
+
+    @property
+    def count(self) -> int:
+        """Padded row count."""
+        return self.center_x.shape[0]
+
+
+class SphereSOABuilder:
+    """Host-side builder: add() rows, then finalize() pads to a multiple of
+    `pad_multiple` rows with placeholders and returns the SphereSOA."""
+
+    def __init__(self):
+        self.rows = {name: [] for name in COLUMNS}
+
+    @property
+    def count(self) -> int:
+        return len(self.rows["center_x"])
+
+    def add(self, center_x, center_y, center_z, radius, mat_type,
+            albedo_x, albedo_y, albedo_z, fuzz, ref_idx) -> int:
+        """Append one row; returns its index."""
+        for name, v in zip(COLUMNS, (center_x, center_y, center_z, radius,
+                                     mat_type, albedo_x, albedo_y, albedo_z,
+                                     fuzz, ref_idx)):
+            self.rows[name].append(v)
+        return self.count - 1
+
+    def finalize(self, pad_multiple: int = 128, device="cpu") -> SphereSOA:
+        n = self.count
+        pad = -n % pad_multiple
+        cols = {}
+        for name in COLUMNS:
+            dtype = np.int32 if name == "mat_type" else np.float32
+            # Python floats round to float32 through numpy, as in the JAX
+            # builder, so both packages hold the same bits.
+            arr = np.asarray(self.rows[name] + [_PAD[name]] * pad, dtype=dtype)
+            cols[name] = torch.from_numpy(arr).to(device)
+        return SphereSOA(**cols)
