@@ -34,14 +34,14 @@ SCENES = ("large", "medium", "small", "giant")
 FRAMES = 3
 
 
-def _smi(*query: str) -> list:
+def smi(*query: str) -> list:
     out = subprocess.run(["nvidia-smi", "--query-gpu=" + ",".join(query),
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()
 
 
-def _busy_us(intervals) -> float:
+def busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     busy, end = 0.0, float("-inf")
     for s, e in sorted(intervals):
@@ -82,8 +82,8 @@ def profiled_frame(scene, cfg):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         return wall, None, None
-    busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3
-    kernel = _busy_us((e.time_range.start, e.time_range.end) for e in dev
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3
+    kernel = busy_us((e.time_range.start, e.time_range.end) for e in dev
                       if "respawn_kernel" in e.name) / 1e3
     return wall, busy, kernel
 
@@ -127,7 +127,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("rays1bench_tpu_torch.bench.profile needs a CUDA "
                          "device")
-    print(f"[card] {_smi('name', 'power.limit')[0]} | torch {torch.__version__}"
+    print(f"[card] {smi('name', 'power.limit')[0]} | torch {torch.__version__}"
           f" cuda {torch.version.cuda}", flush=True)
 
     for name in SCENES:

@@ -4,10 +4,11 @@ rays1bench_tpu/core/config.py (reference: src/common/common.h:3-31).
 A frozen dataclass of Python scalars. Nothing here is jit-static any more;
 the fields keep their JAX names so a config built for one package means the
 same render in the other. `ray_chunk` bounds the plain renderer's wavefront
-width. `early_exit`, `pallas_intersect` and `soft_silhouette` are carried for
-field parity with the JAX config, but this slice of the port renders with
-early exit, the plain sweep and the hard renderer only, so any value that
-asks for another mode raises instead of being ignored.
+width. `early_exit=False` is the fixed-trip loop of the gradient path.
+`pallas_intersect` and `soft_silhouette` are carried for field parity with
+the JAX config, but the port has only the plain sweep and the hard
+renderer, so a value that asks for another mode raises instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -35,9 +36,6 @@ class RenderConfig:
     soft_silhouette: float = 0.0
 
     def __post_init__(self):
-        if not self.early_exit:
-            raise ValueError("early_exit=False (the fixed-trip scan) is not "
-                             "ported; the port renders with early exit")
         if self.pallas_intersect:
             raise ValueError("pallas_intersect=True (the closest-hit index "
                              "kernel) is not ported; the port uses the plain "

@@ -16,6 +16,7 @@ kernel equal to its plain version.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -27,6 +28,10 @@ import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "rays1bench_tpu_torch"
+
+# (library name, source under csrc/) of every kernel of the port.
+KERNELS = (("respawn", "respawn.cu"), ("oneshot", "oneshot.cu"),
+           ("mega_backward", "mega_backward.cu"))
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -74,6 +79,13 @@ def build(name: str, source: str) -> pathlib.Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all(kernels=KERNELS) -> list:
+    """Build the given (name, source) libraries at once, one nvcc each, all
+    started together; returns their paths in order."""
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        return list(pool.map(lambda k: build(*k), kernels))
 
 
 @functools.cache

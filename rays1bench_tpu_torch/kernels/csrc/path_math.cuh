@@ -236,11 +236,13 @@ __device__ __forceinline__ Hit unpack_hit(const float* sph, int S, int best,
 // ---- scatter (render/materials.py) and sky (render/integrator.py) ----------
 
 // Scattered unit direction and whether the ray survives (only metals absorb).
-// The attenuation is the hit's albedo (dielectrics store 1).
+// The attenuation is the hit's albedo (dielectrics store 1). If `reflected`
+// is given, a dielectric stores there whether it took the mirror branch.
 __device__ __forceinline__ bool scatter(const Hit& h, float dx, float dy,
                                         float dz, uint32_t seed, uint32_t rid,
                                         uint32_t bounce, float& sx, float& sy,
-                                        float& sz) {
+                                        float& sz,
+                                        bool* reflected = nullptr) {
   const float eps = 0x1.197998p-40f;  // float32(1e-12)
   if (h.mat_type == 2) {  // dielectric (rayweek1.cpp:461-512)
     float rx, ry, rz;
@@ -272,6 +274,7 @@ __device__ __forceinline__ bool scatter(const Hit& h, float dx, float dy,
     float reflect_prob = can_refract ? schlick_p : 1.0f;
     float u = uniform01(seed, rid, bounce, kSlotDielectricP);
     bool take_reflect = u < reflect_prob;
+    if (reflected) *reflected = take_reflect;
     sx = take_reflect ? rx : fx;
     sy = take_reflect ? ry : fy;
     sz = take_reflect ? rz : fz;

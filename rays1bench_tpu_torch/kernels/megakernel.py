@@ -1,21 +1,27 @@
-"""The sample-respawn path tracer: the CUDA kernel's wrapper and its plain
-version (rays1bench_tpu/kernels/megakernel.py, respawn part).
+"""The port's path-tracing kernels and their plain versions
+(rays1bench_tpu/kernels/megakernel.py).
 
 `trace_respawn` is the counterpart of `trace_pallas_respawn`: every sample
 of every pixel traced to completion, returning per-pixel radiance sums and
-per-pixel ray counts in image order. On a CUDA tensor it launches the kernel
-in csrc/respawn.cu (built by kernels/build.py); on a CPU tensor it runs
-`trace_respawn_reference`, the plain torch version. There is no fallback
-between the two: a CUDA input launches the kernel or raises.
+per-pixel ray counts in image order. `trace_topology` is the counterpart of
+`trace_pallas(emit_topology=True)`, the gradient path's forward: one thread
+per given primary ray, per-ray radiance and counts, and the winning sphere
+row of every bounce. On a CUDA tensor each launches its kernel
+(csrc/respawn.cu, csrc/oneshot.cu, built by kernels/build.py); on a CPU
+tensor it runs its plain torch version (`trace_respawn_reference`,
+`trace_topology_reference`). There is no fallback between the two: a CUDA
+input launches the kernel or raises.
 
-Both read the same packed tables as the Pallas kernel, kept bit for bit:
+All read the same packed tables as the Pallas kernels, kept bit for bit:
 the (7, S) sphere table of `pack_spheres` (placeholder radius_sq poisoned to
 -1e30, 8-bit albedo as r*65536 + g*256 + b, material and parameter as
 mt*32 + param) and the 19-float camera row of `pack_camera`. `ref_idx` and
 `fuzz` therefore decode to the same floats as in the JAX kernel, which is
 what makes ray counts comparable. Dropped TPU workarounds: the pixel-tile
-slot permutation (the kernel writes image order), `tile_lanes`, `unroll`,
-`sync_every` and `debug_iters`.
+slot permutation (the kernels read and write in ray or image order),
+`tile_rays`, `unroll`, `sync_every` and `debug_iters`. Without
+`sync_every` there is no overshoot past max_bounces, so the topology write
+guard of the Pallas kernel has nothing to guard.
 """
 
 from __future__ import annotations
@@ -40,8 +46,10 @@ _BIG = 3.0e38
 # kernel's static shared arrays.
 _MAX_TABLE_BYTES = 232448 - 1024
 
-# Kernel launches made by trace_respawn (one per call on a CUDA tensor).
+# Kernel launches made by trace_respawn and by trace_topology (one per
+# call on a CUDA tensor).
 LAUNCHES = 0
+ONESHOT_LAUNCHES = 0
 
 
 def pack_spheres(prep: PreparedSpheres) -> torch.Tensor:
@@ -166,7 +174,7 @@ def trace_respawn_reference(packed: torch.Tensor, cam: torch.Tensor, pid, x,
     return tuple(sums), cnt
 
 
-def _check(name, t, dtype, shape, device):
+def check_tensor(name, t, dtype, shape, device):
     if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
         raise ValueError(f"{name}: expected {dtype} {shape} on {device}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
@@ -174,7 +182,14 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _kernel():
+def _check_table_fits(s_count):
+    if NUM_SPHERE_ROWS * 4 * s_count > _MAX_TABLE_BYTES:
+        raise ValueError(f"{s_count} sphere rows need "
+                         f"{NUM_SPHERE_ROWS * 4 * s_count} B of shared memory; "
+                         f"a block has at most {_MAX_TABLE_BYTES}")
+
+
+def _respawn_kernel():
     lib = build.load("respawn", "respawn.cu")
     fn = lib.rays1_respawn_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -199,8 +214,9 @@ def trace_respawn(packed: torch.Tensor, cam: torch.Tensor,
     global LAUNCHES
     device = packed.device
     s_count = packed.shape[1] if packed.dim() == 2 else -1
-    _check("packed", packed, torch.float32, (NUM_SPHERE_ROWS, s_count), device)
-    _check("cam", cam, torch.float32, (CAMERA_FLOATS,), device)
+    check_tensor("packed", packed, torch.float32, (NUM_SPHERE_ROWS, s_count),
+                 device)
+    check_tensor("cam", cam, torch.float32, (CAMERA_FLOATS,), device)
     s_lo, s_hi = _span(cfg, sample_span)
     npix = cfg.num_pixels
 
@@ -213,14 +229,11 @@ def trace_respawn(packed: torch.Tensor, cam: torch.Tensor,
         return rad, cnt, cnt.sum(dtype=torch.int64)
     if device.type != "cuda":
         raise ValueError(f"trace_respawn runs on cuda or cpu, not {device}")
-    if NUM_SPHERE_ROWS * 4 * s_count > _MAX_TABLE_BYTES:
-        raise ValueError(f"{s_count} sphere rows need "
-                         f"{NUM_SPHERE_ROWS * 4 * s_count} B of shared memory; "
-                         f"a block has at most {_MAX_TABLE_BYTES}")
+    _check_table_fits(s_count)
     if npix * cfg.spp >= 2 ** 31:
         raise ValueError("ray ids must fit in int32")
 
-    fn = _kernel()
+    fn = _respawn_kernel()
     rr, rg, rb = (torch.empty(npix, dtype=torch.float32, device=device)
                   for _ in range(3))
     cnt = torch.empty(npix, dtype=torch.int32, device=device)
@@ -234,3 +247,103 @@ def trace_respawn(packed: torch.Tensor, cam: torch.Tensor,
         raise RuntimeError(f"respawn kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return (rr, rg, rb), cnt, total[0]
+
+
+def trace_topology_reference(packed: torch.Tensor, ox, oy, oz, dx, dy, dz,
+                             ray_id, cfg: RenderConfig):
+    """Plain version of the one-shot topology kernel, on any device: the
+    packed-table sweep under render.integrator.trace, in the per-bounce
+    order of megakernel._make_bounce. Lanes with ray_id >=
+    cfg.num_primary_rays are padding, never traced or counted.
+
+    Returns ((rr, rg, rb) float32[N] radiance, cnt int32[N] rays traced,
+    topo int32[max_bounces+1, N]: the winning row for a live lane that hit,
+    -1 otherwise)."""
+    planes = []
+
+    def intersector(*rays):
+        best, bt = sweep(packed, *rays, cfg.t_min)
+        rec = closest_hit_record(packed, best, bt, *rays)
+        planes.append(torch.where(rec.hit, best.to(torch.int32), -1))
+        return rec
+
+    rad, cnt = trace(None, ox, oy, oz, dx, dy, dz, cfg.seed, ray_id,
+                     max_bounces=cfg.max_bounces, t_min=cfg.t_min,
+                     active=ray_id < cfg.num_primary_rays,
+                     intersector=intersector)
+    topo = torch.full((cfg.max_bounces + 1, ox.shape[0]), -1,
+                      dtype=torch.int32, device=ox.device)
+    # A lane is alive at bounce b exactly when it was counted more than b
+    # times: it dies once and stays dead.
+    for b, plane in enumerate(planes):
+        topo[b] = torch.where(cnt > b, plane, -1)
+    return rad, cnt, topo
+
+
+def check_rays(n: int, device, **planes):
+    """Raise unless every plane is a contiguous length-n tensor on device:
+    float32, or int32 for ray_id."""
+    for name, t in planes.items():
+        dtype = torch.int32 if name == "ray_id" else torch.float32
+        check_tensor(name, t, dtype, (n,), device)
+
+
+def _oneshot_kernel():
+    lib = build.load("oneshot", "oneshot.cu")
+    fn = lib.rays1_oneshot_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, f, ctypes.c_uint32,
+                   p, p, p, p, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def trace_topology(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
+                   cfg: RenderConfig):
+    """Trace N given primary rays, recording each bounce's winning row.
+
+    packed: float32 (7, S) from pack_spheres; ox..dz: float32[N] primary
+    rays; ray_id: int32[N] global ray ids in any order (ids >=
+    cfg.num_primary_rays are padding). All on one device.
+
+    Returns ((rr, rg, rb) float32[N] per-ray radiance; cnt int32[N] rays
+    traced per lane; total int64 0-dim tensor; topo int32[max_bounces+1, N]
+    winning raw row per bounce for live lanes that hit, -1 otherwise). CUDA
+    tensors launch the kernel of csrc/oneshot.cu on the current stream,
+    which writes every topology plane itself; CPU tensors run
+    trace_topology_reference."""
+    global ONESHOT_LAUNCHES
+    device = packed.device
+    n = ox.shape[0] if ox.dim() == 1 else -1
+    s_count = packed.shape[1] if packed.dim() == 2 else -1
+    check_tensor("packed", packed, torch.float32, (NUM_SPHERE_ROWS, s_count),
+                 device)
+    check_rays(n, device, ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz,
+               ray_id=ray_id)
+    if device.type == "cpu":
+        rad, cnt, topo = trace_topology_reference(packed, ox, oy, oz, dx, dy,
+                                                  dz, ray_id, cfg)
+        return rad, cnt, cnt.sum(dtype=torch.int64), topo
+    if device.type != "cuda":
+        raise ValueError(f"trace_topology runs on cuda or cpu, not {device}")
+    _check_table_fits(s_count)
+
+    rr, rg, rb = (torch.empty(n, dtype=torch.float32, device=device)
+                  for _ in range(3))
+    cnt = torch.empty(n, dtype=torch.int32, device=device)
+    topo = torch.empty((cfg.max_bounces + 1, n), dtype=torch.int32,
+                       device=device)
+    total = torch.zeros(1, dtype=torch.int64, device=device)
+    if n == 0:
+        return (rr, rg, rb), cnt, total[0], topo
+    fn = _oneshot_kernel()
+    err = fn(packed.data_ptr(), s_count, ox.data_ptr(), oy.data_ptr(),
+             oz.data_ptr(), dx.data_ptr(), dy.data_ptr(), dz.data_ptr(),
+             ray_id.data_ptr(), n, cfg.num_primary_rays, cfg.max_bounces,
+             cfg.t_min, cfg.seed, rr.data_ptr(), rg.data_ptr(), rb.data_ptr(),
+             cnt.data_ptr(), topo.data_ptr(), total.data_ptr(),
+             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"oneshot kernel launch failed: cudaError {err}")
+    ONESHOT_LAUNCHES += 1
+    return (rr, rg, rb), cnt, total[0], topo

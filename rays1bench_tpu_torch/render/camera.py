@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 
 from rays1bench_tpu_torch.core import rng as rng_mod
+from rays1bench_tpu_torch.core.device import resolve
 from rays1bench_tpu_torch.core.vecmath import sqrt, vcross, vnorm, vsub
 
 
@@ -32,8 +33,9 @@ class CameraSpec:
     aperture: float = 0.0
     focus_dist: float = 1.0
 
-    def build(self, device="cpu") -> "Camera":
+    def build(self, device="cuda") -> "Camera":
         """Derive the ray-gen basis (rayweek1.cpp:366-379)."""
+        device = resolve(device)
         theta = self.vfov * math.pi / 180.0
         half_h = math.tan(theta / 2.0)
         half_w = self.aspect * half_h

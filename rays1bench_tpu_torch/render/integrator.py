@@ -1,22 +1,26 @@
-"""Wavefront radiance integrator, early-exit mode
-(rays1bench_tpu/render/integrator.py; reference:
-src/latest/rayweek1.cpp:515-536).
+"""Wavefront radiance integrator (rays1bench_tpu/render/integrator.py;
+reference: src/latest/rayweek1.cpp:515-536).
 
 The reference's recursion becomes an iterative masked wavefront: the batch
-advances one bounce per step, dead lanes masked, until every lane is dead or
-the bounce cap is reached. A path's radiance is the product of its
-attenuations times the sky on a miss, 0 if absorbed or depth-capped. Rays
-are counted per radiance evaluation, bounces included
-(++td->out_num_rays, rayweek1.cpp:517). The JAX package's fixed-trip,
-topology-replay and soft-silhouette modes serve the gradient path and are
-not ported yet.
+advances one bounce per step, dead lanes masked. With early exit the loop
+stops once every lane is dead; the fixed-trip mode (early_exit=False) runs
+all max_bounces+1 steps, as the gradient path needs. A path's radiance is
+the product of its attenuations times the sky on a miss, 0 if absorbed or
+depth-capped. Rays are counted per radiance evaluation, bounces included
+(++td->out_num_rays, rayweek1.cpp:517).
+
+Topology replay (`topology=(idx, hit)`) rebuilds every bounce's
+differentiable hit record from a recorded winning row instead of sweeping:
+the backward half of the megakernel-forward gradient (grad/mega.py). The
+JAX package's soft-silhouette mode is not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
-from rays1bench_tpu_torch.render.intersect import closest_hit
+from rays1bench_tpu_torch.render.intersect import (closest_hit,
+                                                   hit_record_from_index)
 from rays1bench_tpu_torch.render.materials import scatter
 
 
@@ -30,17 +34,25 @@ def sky_color(dx, dy, dz):
 
 def trace(spheres, ox, oy, oz, dx, dy, dz, seed, ray_id,
           max_bounces: int = 50, t_min: float = 1e-3, t_max: float = 3.4e38,
-          active=None, intersector=None):
+          early_exit: bool = True, active=None, intersector=None,
+          topology=None):
     """Trace a wavefront of N primary rays to completion.
 
     active: optional bool[N]; inactive lanes are dead from the start and are
     never counted. intersector(ox..dz) -> HitRecord replaces the plain
     closest_hit sweep over `spheres` (the megakernel's plain version passes
-    its packed-table sweep).
+    its packed-table sweep). topology = (idx int[max_bounces+1, N], hit
+    bool[max_bounces+1, N]) replays the recorded winners through
+    hit_record_from_index instead; it needs early_exit=False.
 
     Returns ((rr, rg, rb) float32[N] radiance, count int32[N] rays traced per
     lane). The JAX counterpart returns only the summed count."""
-    if intersector is None:
+    if topology is not None:
+        if early_exit:
+            raise ValueError("topology replay is fixed-trip: pass "
+                             "early_exit=False")
+        topo_idx, topo_hit = topology
+    elif intersector is None:
         intersector = lambda *r: closest_hit(*r, spheres, t_min, t_max)
     alive = torch.ones_like(ox, dtype=torch.bool) if active is None else active
     ar = torch.ones_like(ox)
@@ -52,10 +64,15 @@ def trace(spheres, ox, oy, oz, dx, dy, dz, seed, ray_id,
     count = torch.zeros_like(ray_id, dtype=torch.int32)
 
     for bounce in range(max_bounces + 1):
-        if not bool(alive.any()):
+        if early_exit and not bool(alive.any()):
             break
         count += alive.to(torch.int32)
-        rec = intersector(ox, oy, oz, dx, dy, dz)
+        if topology is None:
+            rec = intersector(ox, oy, oz, dx, dy, dz)
+        else:
+            rec = hit_record_from_index(ox, oy, oz, dx, dy, dz, spheres,
+                                        topo_idx[bounce], topo_hit[bounce],
+                                        t_min)
 
         # Miss -> attenuated sky, lane dies.
         skr, skg, skb = sky_color(dx, dy, dz)

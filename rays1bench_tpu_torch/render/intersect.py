@@ -4,9 +4,15 @@ src/latest/rayweek1.cpp:152-339).
 
 The reference's two-pass compaction becomes a dense masked sweep over the
 (rays x spheres) candidate matrix and a first-minimum argmin; the hit record
-is then recomputed from the winning row. Normalized ray directions are
-assumed. Not ported yet: take_cols, hit_record_from_index and the soft
-silhouette mode, which serve the gradient path.
+is then recomputed from the winning row by hit_record_from_index, which the
+gradient path's topology replay calls directly. Normalized ray directions
+are assumed. Not ported yet: the soft silhouette mode (_near_miss_index and
+the soft fields of the record).
+
+take_cols is a plain clamped index on this port. The JAX package runs it as
+a dense select sweep with a one-hot custom VJP, because TPU gathers and
+scatters serialize per element (rays1bench_tpu/render/intersect.py:41-94);
+on a GPU an index is cheap and autograd's index backward is the scatter-add.
 """
 
 from __future__ import annotations
@@ -65,15 +71,37 @@ def closest_hit_index(ox, oy, oz, dx, dy, dz, spheres: PreparedSpheres,
     return best, t_best < _BIG
 
 
+def take_cols(cols, j):
+    """cols[:, j] for (C, S) columns and int[N] row indices -> (C, N).
+    j = -1 (a dead lane of the topology replay) reads column 0, which every
+    consumer masks with hit=False."""
+    return cols[:, j.clamp(min=0).long()]
+
+
 def closest_hit(ox, oy, oz, dx, dy, dz, spheres: PreparedSpheres,
                 t_min: float, t_max: float) -> HitRecord:
     """Closest intersection of N rays against all S spheres: the index sweep,
     then an O(N) recompute of t, point and normal from the winning row."""
     best, hit = closest_hit_index(ox, oy, oz, dx, dy, dz, spheres,
-                                     t_min, t_max)
-    col = lambda a: a[best]
-    cx, cy, cz = col(spheres.center_x), col(spheres.center_y), col(spheres.center_z)
-    rsq, inv_r = col(spheres.radius_sq), col(spheres.inv_radius)
+                                  t_min, t_max)
+    return hit_record_from_index(ox, oy, oz, dx, dy, dz, spheres, best, hit,
+                                 t_min)
+
+
+def hit_record_from_index(ox, oy, oz, dx, dy, dz, spheres: PreparedSpheres,
+                          best, hit, t_min: float) -> HitRecord:
+    """Differentiable hit record of the given winning rows (hard mode).
+
+    best: int[N] row per ray (-1 reads row 0, masked by hit); hit: bool[N].
+    Gradients flow through t, point, normal and the material columns at the
+    fixed index; mat_type rides the float stack and leaves it detached."""
+    (cx, cy, cz, rsq, inv_r, alb_x, alb_y, alb_z, fuzz, ref_idx,
+     mt_f) = take_cols(
+        torch.stack([spheres.center_x, spheres.center_y, spheres.center_z,
+                     spheres.radius_sq, spheres.inv_radius, spheres.albedo_x,
+                     spheres.albedo_y, spheres.albedo_z, spheres.fuzz,
+                     spheres.ref_idx, spheres.mat_type.to(torch.float32)]),
+        best)
 
     gx, gy, gz = cx - ox, cy - oy, cz - oz
     nb_j = gx * dx + gy * dy + gz * dz
@@ -90,7 +118,6 @@ def closest_hit(ox, oy, oz, dx, dy, dz, spheres: PreparedSpheres,
     return HitRecord(
         hit=hit, t=t, px=px, py=py, pz=pz,
         nx=(px - cx) * inv_r, ny=(py - cy) * inv_r, nz=(pz - cz) * inv_r,
-        mat_type=col(spheres.mat_type),
-        albedo_x=col(spheres.albedo_x), albedo_y=col(spheres.albedo_y),
-        albedo_z=col(spheres.albedo_z),
-        fuzz=col(spheres.fuzz), ref_idx=col(spheres.ref_idx))
+        mat_type=mt_f.detach().to(torch.int32),
+        albedo_x=alb_x, albedo_y=alb_y, albedo_z=alb_z,
+        fuzz=fuzz, ref_idx=ref_idx)

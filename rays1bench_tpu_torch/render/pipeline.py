@@ -31,15 +31,25 @@ def primary_rays(camera: Camera, cfg: RenderConfig, x, y, ray_id):
     return camera.generate_rays(s, t, cfg.seed, ray_id)
 
 
-def render_image(spheres_soa: SphereSOA, camera: Camera, cfg: RenderConfig):
+def render_image(spheres_soa: SphereSOA, camera: Camera, cfg: RenderConfig,
+                 topology=None):
     """Render a linear-radiance float image.
+
+    topology: optional int32[max_bounces+1, num_primary_rays] winning raw
+    SoA row per bounce in ray-id order (-1 where nothing was hit): replay
+    mode, no sweep runs and every hit record is rebuilt from the rows
+    (integrator.trace). Needs cfg.early_exit=False. Differentiable with
+    respect to the SphereSOA and camera tensors when cfg.early_exit is
+    False. Chunks of cfg.ray_chunk rays bound the plain sweep's (chunk, S)
+    temporaries; under autograd every chunk's graph lives until the
+    backward, so they bound nothing there.
 
     Returns (image float32[H, W, 3] per-pixel mean radiance, row 0 at the
     bottom; num_rays int64 0-dim tensor, rays traced including bounces)."""
     spheres = prepare(spheres_soa)
     device = spheres_soa.center_x.device
     n = cfg.num_primary_rays
-    rad = torch.empty((n, 3), dtype=torch.float32, device=device)
+    rad = []
     num_rays = torch.zeros((), dtype=torch.int64, device=device)
     for lo in range(0, n, cfg.ray_chunk):
         ray_id = torch.arange(lo, min(lo + cfg.ray_chunk, n),
@@ -48,12 +58,17 @@ def render_image(spheres_soa: SphereSOA, camera: Camera, cfg: RenderConfig):
         x = (pixel % cfg.width).to(torch.float32)
         y = (pixel // cfg.width).to(torch.float32)
         rays = primary_rays(camera, cfg, x, y, ray_id)
+        topo = None
+        if topology is not None:
+            idx = topology[:, lo:lo + ray_id.shape[0]]
+            topo = (idx, idx >= 0)
         (rr, rg, rb), count = trace(spheres, *rays, cfg.seed, ray_id,
                                     max_bounces=cfg.max_bounces,
-                                    t_min=cfg.t_min, t_max=cfg.t_max)
-        rad[lo:lo + ray_id.shape[0]] = torch.stack([rr, rg, rb], dim=-1)
+                                    t_min=cfg.t_min, t_max=cfg.t_max,
+                                    early_exit=cfg.early_exit, topology=topo)
+        rad.append(torch.stack([rr, rg, rb], dim=-1))
         num_rays += count.sum(dtype=torch.int64)
-    image = rad.reshape(cfg.height, cfg.width, cfg.spp, 3).mean(dim=2)
+    image = torch.cat(rad).reshape(cfg.height, cfg.width, cfg.spp, 3).mean(dim=2)
     return image, num_rays
 
 

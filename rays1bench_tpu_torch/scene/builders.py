@@ -48,7 +48,7 @@ class _W:
 
 
 def create_small_scene(aspect: float, pad_multiple: int = 128,
-                       device="cpu") -> Scene:
+                       device="cuda") -> Scene:
     """5 spheres incl. hollow glass (rayweek1.cpp:552-579)."""
     cam = CameraSpec(lookfrom=(2, 1, 2), lookat=(0, 0, 0), vup=(0, 1, 0),
                      vfov=60.0, aspect=aspect, aperture=0.1, focus_dist=5.0)
@@ -62,7 +62,7 @@ def create_small_scene(aspect: float, pad_multiple: int = 128,
 
 
 def create_medium_scene(aspect: float, pad_multiple: int = 128,
-                        device="cpu") -> Scene:
+                        device="cuda") -> Scene:
     """The 46-sphere aras_p Toy Path Tracer scene (rayweek1.cpp:582-651)."""
     cam = CameraSpec(lookfrom=(0, 2, 3), lookat=(0, 0, 0), vup=(0, 1, 0),
                      vfov=60.0, aspect=aspect, aperture=0.1 * 0.2, focus_dist=3.0)
@@ -125,7 +125,7 @@ def _grid_scene(name, aspect, grid_w, grid_h, color, ref_idx, pad_multiple,
 
 
 def create_large_scene(aspect: float, pad_multiple: int = 128,
-                       device="cpu") -> Scene:
+                       device="cuda") -> Scene:
     """30x16 grid + ground + 3 big spheres = 484 (rayweek1.cpp:654-719);
     grid colors from the captured CRT rand() bytes (crt_colors.py)."""
     color = lambda i: tuple(CRT_COLOR_BYTES[i * 3 + k] / 255.0 for k in range(3))
@@ -134,7 +134,7 @@ def create_large_scene(aspect: float, pad_multiple: int = 128,
 
 
 def create_giant_scene(aspect: float, pad_multiple: int = 128,
-                       device="cpu") -> Scene:
+                       device="cuda") -> Scene:
     """66x62 grid + ground + 3 big spheres = 4096 rows, a stress scene with
     no reference analog; grid colors from a fixed-seed PRNG, dielectric
     indices wrapped to 1.2..2.4."""

@@ -10,6 +10,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from rays1bench_tpu_torch.core.device import resolve
 from rays1bench_tpu_torch.render.camera import Camera
 from rays1bench_tpu_torch.scene.soa_spheres import COLUMNS, SphereSOA
 
@@ -21,10 +22,10 @@ def _tensor(a, dtype, device):
     a = np.asarray(a)
     if a.dtype != dtype:
         raise ValueError(f"expected {np.dtype(dtype)}, got {a.dtype}")
-    return torch.from_numpy(np.array(a)).to(device)
+    return torch.from_numpy(np.array(a)).to(resolve(device))
 
 
-def soa_from_numpy(cols: Dict[str, np.ndarray], device="cpu") -> SphereSOA:
+def soa_from_numpy(cols: Dict[str, np.ndarray], device="cuda") -> SphereSOA:
     """SphereSOA from a dict of the ten column arrays (mat_type int32, the
     rest float32), bits unchanged."""
     return SphereSOA(**{
@@ -33,7 +34,7 @@ def soa_from_numpy(cols: Dict[str, np.ndarray], device="cpu") -> SphereSOA:
         for name in COLUMNS})
 
 
-def camera_from_numpy(fields: Dict[str, np.ndarray], device="cpu") -> Camera:
+def camera_from_numpy(fields: Dict[str, np.ndarray], device="cuda") -> Camera:
     """Camera from a dict of float32 arrays: six length-3 vectors and the
     scalar lens_radius."""
     return Camera(**{name: _tensor(fields[name], np.float32, device)

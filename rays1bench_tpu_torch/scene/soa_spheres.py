@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from rays1bench_tpu_torch.core.device import resolve
+
 COLUMNS = ("center_x", "center_y", "center_z", "radius", "mat_type",
            "albedo_x", "albedo_y", "albedo_z", "fuzz", "ref_idx")
 
@@ -63,7 +65,8 @@ class SphereSOABuilder:
             self.rows[name].append(v)
         return self.count - 1
 
-    def finalize(self, pad_multiple: int = 128, device="cpu") -> SphereSOA:
+    def finalize(self, pad_multiple: int = 128, device="cuda") -> SphereSOA:
+        device = resolve(device)
         n = self.count
         pad = -n % pad_multiple
         cols = {}

@@ -63,7 +63,6 @@ def test_config_fields_and_presets_match():
 
 
 @pytest.mark.parametrize("field,value,mode", [
-    ("early_exit", False, "fixed-trip"),
     ("pallas_intersect", True, "closest-hit index kernel"),
     ("soft_silhouette", 0.005, "soft renderer"),
 ])
@@ -162,14 +161,17 @@ def test_reflect_and_dot_bit_exact():
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port (and chip_smoke.py) leaves jax out
-    of sys.modules."""
+    """Importing every module of the port (and chip_smoke.py), the gradient
+    slice's included, leaves jax out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rays1bench_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 26, names\n"
+        "for n in ('grad.mega', 'grad.inverse', 'grad.checkpoint', "
+        "'kernels.mega_backward', 'bench.grad'):\n"
+        "    assert 'rays1bench_tpu_torch.' + n in names, n\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -63,7 +63,7 @@ def test_morton_order_same_permutation(name):
     valid = s.radius != 0.0
     want = np.asarray(jculling.morton_order(s.center_x, s.center_y,
                                             s.center_z, valid))
-    t = tbuilders.SCENES[name](ASPECT).spheres
+    t = tbuilders.SCENES[name](ASPECT, device="cpu").spheres
     got = culling.morton_order(t.center_x, t.center_y, t.center_z,
                                t.radius != 0.0)
     assert np.array_equal(got.numpy(), want.astype(np.int64))
@@ -88,7 +88,8 @@ def test_morton_order_ties_keep_row_order():
 def test_prepare_trimmed_bit_exact(name, n_real):
     want, _ = jpipeline.prepare_trimmed(jbuilders.SCENES[name](ASPECT).spheres,
                                         0, "sort_trim", n_real)
-    got = tpipeline.prepare_trimmed(tbuilders.SCENES[name](ASPECT).spheres,
+    got = tpipeline.prepare_trimmed(
+        tbuilders.SCENES[name](ASPECT, device="cpu").spheres,
                                     n_real)
     for f in dataclasses.fields(want):
         assert same_bits(getattr(got, f.name).numpy(),
@@ -98,18 +99,19 @@ def test_prepare_trimmed_bit_exact(name, n_real):
 @pytest.mark.parametrize("name", SCENES)
 def test_pack_tables_bit_exact(name):
     jscene = jbuilders.SCENES[name](ASPECT)
-    tscene = tbuilders.SCENES[name](ASPECT)
+    tscene = tbuilders.SCENES[name](ASPECT, device="cpu")
     jprep, _ = jpipeline.prepare_trimmed(jscene.spheres, 0, "sort_trim",
                                          jscene.n_real)
     tprep = tpipeline.prepare_trimmed(tscene.spheres, tscene.n_real)
     assert same_bits(megakernel.pack_spheres(tprep).numpy(),
                      jmega._pack_spheres(jprep))
-    assert same_bits(megakernel.pack_camera(tscene.camera.build()).numpy(),
-                     np.asarray(jmega._pack_camera(jscene.camera.build()))[0])
+    assert same_bits(
+        megakernel.pack_camera(tscene.camera.build("cpu")).numpy(),
+        np.asarray(jmega._pack_camera(jscene.camera.build()))[0])
 
 
 def packed_large():
-    scene = tbuilders.create_large_scene(ASPECT)
+    scene = tbuilders.create_large_scene(ASPECT, device="cpu")
     return megakernel.pack_spheres(tpipeline.prepare_trimmed(scene.spheres,
                                                              scene.n_real))
 
@@ -149,7 +151,7 @@ def test_sweep_winner_matches_jax_closest_hit(name):
                                          jscene.n_real)
     jprep = dataclasses.replace(
         jprep, fuzz=jnp.arange(jprep.count, dtype=jnp.float32))
-    tscene = tbuilders.SCENES[name](ASPECT)
+    tscene = tbuilders.SCENES[name](ASPECT, device="cpu")
     packed = megakernel.pack_spheres(
         tpipeline.prepare_trimmed(tscene.spheres, tscene.n_real))
     rays = random_rays(3)
@@ -165,10 +167,10 @@ def test_sweep_winner_matches_jax_closest_hit(name):
 
 def small_inputs(w=24, h=16, spp=3, mb=5):
     cfg = RenderConfig(width=w, height=h, spp=spp, max_bounces=mb, seed=3)
-    scene = tbuilders.create_small_scene(cfg.aspect)
+    scene = tbuilders.create_small_scene(cfg.aspect, device="cpu")
     packed = megakernel.pack_spheres(
         tpipeline.prepare_trimmed(scene.spheres, scene.n_real))
-    return cfg, packed, megakernel.pack_camera(scene.camera.build())
+    return cfg, packed, megakernel.pack_camera(scene.camera.build("cpu"))
 
 
 def test_respawn_reference_padding_lanes_never_count():
@@ -251,8 +253,9 @@ def test_slice_matches_jax_interpret(name, spp, monkeypatch):
         monkeypatch.undo()
         jpipeline._render_jit._clear_cache()
 
-    soa = convert.soa_from_numpy(jax_leaves(jscene.spheres, COLUMNS))
-    cam = convert.camera_from_numpy(jax_leaves(jcam, convert.CAMERA_FIELDS))
+    soa = convert.soa_from_numpy(jax_leaves(jscene.spheres, COLUMNS), "cpu")
+    cam = convert.camera_from_numpy(jax_leaves(jcam, convert.CAMERA_FIELDS),
+                                    "cpu")
     got, n_got = tpipeline.render_image_megakernel(
         soa, cam, RenderConfig(**kw), n_real=jscene.n_real)
     n_got = int(n_got)
@@ -292,7 +295,7 @@ def test_log_results_matches_jax_format(tmp_path):
 
 
 def test_benchmark_needs_a_cuda_scene():
-    scene = tbuilders.create_small_scene(2.0)
+    scene = tbuilders.create_small_scene(2.0, device="cpu")
     cfg = RenderConfig(width=8, height=4, spp=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         tharness.benchmark(scene, cfg)

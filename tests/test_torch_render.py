@@ -68,7 +68,7 @@ def indexed_scenes(name):
     """Both packages' prepared spheres for a scene, with each row's fuzz
     replaced by its row index, so a hit record's fuzz names the winner."""
     j = jspheres.prepare(jbuilders.SCENES[name](ASPECT).spheres)
-    t = tspheres.prepare(tbuilders.SCENES[name](ASPECT).spheres)
+    t = tspheres.prepare(tbuilders.SCENES[name](ASPECT, device="cpu").spheres)
     idx = np.arange(j.count, dtype=np.float32)
     return (dataclasses.replace(j, fuzz=jnp.asarray(idx)),
             dataclasses.replace(t, fuzz=torch.from_numpy(idx)))
@@ -97,7 +97,8 @@ def test_generate_rays_within_2ulp(name):
     rid = r.integers(0, 2**31 - 1, N).astype(np.int32)
     want = spec.build().generate_rays(jnp.asarray(s), jnp.asarray(t),
                                       jnp.uint32(SEED), jnp.asarray(rid))
-    got = tbuilders.SCENES[name](ASPECT).camera.build().generate_rays(
+    got = tbuilders.SCENES[name](ASPECT, device="cpu").camera.build(
+        "cpu").generate_rays(
         torch.from_numpy(s), torch.from_numpy(t), SEED, torch.from_numpy(rid))
     for k, (w, g) in enumerate(zip(want, got)):
         d = ulp_diff(np.asarray(w), g.numpy())
@@ -166,7 +167,8 @@ def test_to_srgb_u8_bit_exact():
 
 
 def test_trace_inactive_lanes_never_count():
-    tsph = tspheres.prepare(tbuilders.create_small_scene(ASPECT).spheres)
+    tsph = tspheres.prepare(
+        tbuilders.create_small_scene(ASPECT, device="cpu").spheres)
     rays = [torch.from_numpy(a) for a in random_rays(7, n=512, spread=1.0)]
     rid = torch.arange(512, dtype=torch.int32)
     active = rid % 3 != 0
@@ -188,9 +190,9 @@ def test_render_image_matches_jax_xla(name, spp):
     jscene = jbuilders.SCENES[name](jcfg.aspect)
     want, n_want = jpipeline.render_image(jscene.spheres,
                                           jscene.camera.build(), jcfg)
-    tscene = tbuilders.SCENES[name](tcfg.aspect)
+    tscene = tbuilders.SCENES[name](tcfg.aspect, device="cpu")
     got, n_got = tpipeline.render_image(tscene.spheres,
-                                        tscene.camera.build(), tcfg)
+                                        tscene.camera.build("cpu"), tcfg)
     n_want, n_got = int(n_want), int(n_got)
     assert abs(n_got - n_want) <= 2e-3 * n_want, (n_got, n_want)
     gap = np.abs(got.numpy() - np.asarray(want))
@@ -200,7 +202,7 @@ def test_render_image_matches_jax_xla(name, spp):
 
 def test_render_scene_chunks_do_not_change_the_image():
     cfg = RenderConfig(width=16, height=8, spp=2, max_bounces=4)
-    scene = tbuilders.create_small_scene(cfg.aspect)
+    scene = tbuilders.create_small_scene(cfg.aspect, device="cpu")
     a, na = tpipeline.render_scene(scene, cfg)
     b, nb = tpipeline.render_scene(scene, cfg.replace(ray_chunk=40))
     assert na == nb and torch.equal(a, b)

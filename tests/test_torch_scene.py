@@ -44,7 +44,8 @@ def test_crt_color_table_is_a_copy():
 @pytest.mark.parametrize("pad_multiple", [128, 8])
 def test_builder_columns_bit_exact(name, pad_multiple):
     j = jbuilders.SCENES[name](ASPECT, pad_multiple=pad_multiple)
-    t = tbuilders.SCENES[name](ASPECT, pad_multiple=pad_multiple)
+    t = tbuilders.SCENES[name](ASPECT, pad_multiple=pad_multiple,
+                               device="cpu")
     assert t.name == j.name and t.n_real == j.n_real
     assert dataclasses.astuple(t.camera) == dataclasses.astuple(j.camera)
     for c in COLUMNS:
@@ -55,13 +56,14 @@ def test_builder_columns_bit_exact(name, pad_multiple):
 @pytest.mark.parametrize("name", SCENES)
 def test_prepare_bit_exact(name):
     j = jspheres.prepare(jbuilders.SCENES[name](ASPECT).spheres)
-    t = tspheres.prepare(tbuilders.SCENES[name](ASPECT).spheres)
+    t = tspheres.prepare(tbuilders.SCENES[name](ASPECT, device="cpu").spheres)
     for f in dataclasses.fields(j):
         assert same_bits(getattr(t, f.name).numpy(), getattr(j, f.name)), f.name
 
 
 def test_hollow_glass_keeps_signed_inv_radius():
-    t = tspheres.prepare(tbuilders.create_small_scene(ASPECT).spheres)
+    t = tspheres.prepare(
+        tbuilders.create_small_scene(ASPECT, device="cpu").spheres)
     assert t.inv_radius[4] < 0 and t.radius_sq[4] > 0
     assert (t.valid[5:] == 0).all() and (t.inv_radius[5:] == 0).all()
 
@@ -70,7 +72,7 @@ def test_hollow_glass_keeps_signed_inv_radius():
 def test_camera_build_bit_exact(name):
     spec = jbuilders.SCENES[name](ASPECT).camera
     j = spec.build()
-    t = tbuilders.SCENES[name](ASPECT).camera.build()
+    t = tbuilders.SCENES[name](ASPECT, device="cpu").camera.build("cpu")
     for f in dataclasses.fields(j):
         assert same_bits(getattr(t, f.name).numpy(), getattr(j, f.name)), f.name
 
@@ -93,13 +95,14 @@ def test_tga_reads_golden_like_jax(golden_dir):
 @pytest.mark.parametrize("name", ["small", "large"])
 def test_convert_round_trips(name):
     j = jbuilders.SCENES[name](ASPECT)
-    t = tbuilders.SCENES[name](ASPECT)
-    soa = convert.soa_from_numpy(jax_leaves(j.spheres, COLUMNS))
+    t = tbuilders.SCENES[name](ASPECT, device="cpu")
+    soa = convert.soa_from_numpy(jax_leaves(j.spheres, COLUMNS), "cpu")
     for c in COLUMNS:
         assert same_bits(getattr(soa, c).numpy(), getattr(t.spheres, c).numpy())
     jcam = j.camera.build()
-    cam = convert.camera_from_numpy(jax_leaves(jcam, convert.CAMERA_FIELDS))
-    tcam = t.camera.build()
+    cam = convert.camera_from_numpy(jax_leaves(jcam, convert.CAMERA_FIELDS),
+                                    "cpu")
+    tcam = t.camera.build("cpu")
     for f in convert.CAMERA_FIELDS:
         assert same_bits(getattr(cam, f).numpy(), getattr(tcam, f).numpy())
         assert same_bits(getattr(cam, f).numpy(), getattr(jcam, f))
@@ -111,7 +114,7 @@ def test_convert_round_trips(name):
 def test_convert_rejects_wrong_dtype():
     cols = {c: np.zeros(8, np.float32) for c in COLUMNS}
     cols["mat_type"] = np.zeros(8, np.int32)
-    convert.soa_from_numpy(cols)
+    convert.soa_from_numpy(cols, "cpu")
     cols["radius"] = np.zeros(8, np.float64)
     with pytest.raises(ValueError):
-        convert.soa_from_numpy(cols)
+        convert.soa_from_numpy(cols, "cpu")
