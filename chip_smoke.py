@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Requires a CUDA device and prints the card's name and power limit.
-2. Builds the three kernels from kernels/csrc with nvcc (sm_90a), one nvcc
+2. Builds the five kernels from kernels/csrc with nvcc (sm_90a), one nvcc
    each, all started together, and prints the build time and ptxas's
    register and spill report.
 3. Holds the respawn kernel against its plain PyTorch version on the card,
@@ -41,10 +41,52 @@
    the last column, the top row, the corners and seeded picks) as their own
    ray list, whose topology and ray cotangents must equal the whole-frame
    launch's bit for bit.
+10. The closest-hit index kernel against its plain version, idx and hit
+   equal bit for bit: on the medium and giant frames' primary rays at
+   1280x720 @ 4 spp (the plain version in chunks), and on seeded random
+   rays (N = 777 and 100,000, zero directions among them).
+11. The phase kernel against its plain version on small 64x32 @ 8 spp @ 6 b
+   (hollow glass) and 50x30 @ 2 spp @ 4 b (ragged), schedules (2, 5),
+   (2, 3, 6) at 3 b (the budget runs out first) and (1,): after every phase
+   the state, alive flags and counts equal bit for bit, and the whole
+   trace's radiance and counts equal trace_wavefront_reference's.
+12. Drives the one-shot and wavefront engines, render_image_megakernel(
+   respawn=False) with and without wavefront=(2, 3, 6), at the CLI's full
+   config on the large scene, 1280x720 @ 10 spp @ 50 b: the wavefront's
+   image and ray count equal the one-shot's bit for bit; the one-shot's ray
+   count equals the respawn engine's and its image is within SPLIT_TOL.
+   Then both kernels against their plain versions on those frames' own
+   inputs (9,216,000 rays), the plain versions in chunks of rays: the
+   one-shot kernel's per-ray radiance and counts equal trace_topology_
+   reference's bit for bit; each phase, from the same pre-phase state,
+   leaves state, alive flags and counts equal to wavefront_phase_
+   reference's over the same listed rays. Both comparison runs must
+   reproduce the engines' frames.
+13. Drives the multi-scene CLI at its defaults (small, medium, large, one
+   run each, the one-shot engine) and parses each out_<scene>.txt.
+14. engine="pipeline" gradients with the index kernel and with the plain
+   sweep, medium 160x90 @ 4 spp @ 10 b: image, rays and gradients equal bit
+   for bit.
+15. Drives engine="pipeline": fit_scene on the medium recipe of step 8 for 3
+   Adam steps, the target rendered through the pipeline; the loss stays
+   finite and falls and the index kernel launches exactly chunks x 11 x 3
+   times (once a bounce of each chunk of each forward, never in a
+   backward). Peak device memory of one step with and without remat. Then
+   one step on the giant scene (4,096 rows) through engine="auto", which
+   must route to the pipeline. In both fits the index kernel's inputs and
+   results on the first chunk (131,072 rays) of the first forward are kept
+   for every bounce, 0 to 10, and held against its plain version, bit for
+   bit: after bounce 0 the rays start on sphere surfaces, near t_min.
 Then prints one JSON line of per-kernel results and, last, the device line.
-The gradient kernels' launches there are those of both fits; their times
-and bounds are the medium frame's, their max_abs_err the worst of every
-comparison. Any failure raises and exits non-zero before the last line.
+Each kernel's launches there are those of the main paths that run it: the
+respawn kernel's the headline's; the one-shot kernel's both fits, the
+one-shot engine's frame and the CLI's; the index kernel's the pipeline fit
+and the giant step; the phase kernel's the wavefront frame. Times and
+bounds: the gradient kernels' on the medium frame, the index kernel's on
+one chunk of the medium fit (131,072 rays), the phase kernel's summed over
+the phases of the wavefront frame; max_abs_err is the worst of every
+comparison. Any failure
+raises and exits non-zero before the last line.
 
 Bounds: a kernel's bound is the larger of its bytes (each input read once,
 each output written once) over HBM_BYTES_PER_S and its FP32 operations over
@@ -56,6 +98,7 @@ costs SWEEP_OPS per sphere row and traced ray, a replayed bounce of the
 backward BACKWARD_OPS per live bounce.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -68,16 +111,21 @@ import torch
 
 from rays1bench_tpu_torch.bench.grad import (ALBEDOS, cuda_ms, kernel_ms,
                                              launch_ms, perturb_albedos)
+from rays1bench_tpu_torch.bench import cli
 from rays1bench_tpu_torch.bench.harness import benchmark_sustained
-from rays1bench_tpu_torch.core.config import RenderConfig
+from rays1bench_tpu_torch.core.config import RenderConfig, get_config
+from rays1bench_tpu_torch.grad import inverse
 from rays1bench_tpu_torch.grad.inverse import (InverseConfig, fit_scene,
                                                make_train_step, params_of,
-                                               render_for_loss)
-from rays1bench_tpu_torch.kernels import build, mega_backward, megakernel
-from rays1bench_tpu_torch.kernels.pipeline import (prepare_trimmed,
+                                               render_for_loss, with_params)
+from rays1bench_tpu_torch.kernels import (build, intersect_index,
+                                          mega_backward, megakernel)
+from rays1bench_tpu_torch.kernels.pipeline import (image_of_rays,
+                                                   prepare_trimmed,
                                                    ray_coords,
                                                    render_image_megakernel)
-from rays1bench_tpu_torch.render.pipeline import primary_rays, to_srgb_u8
+from rays1bench_tpu_torch.render.pipeline import (primary_rays, render_image,
+                                                  to_srgb_u8)
 from rays1bench_tpu_torch.scene import builders, tga
 from rays1bench_tpu_torch.scene.spheres import prepare
 
@@ -89,7 +137,9 @@ GOLDEN = os.path.join(REPO, "tests", "golden", "latest_full_large.tga")
 # IEEE float32 op, so the two should agree bit for bit.
 SUM_TOL = 0.0
 # A two-span split adds the two partial sums once instead of adding the
-# samples one by one: float addition order only.
+# samples one by one, and the one-shot engine's image is a torch mean over
+# the spp axis where the respawn engine's is a serial sample sum times
+# 1/spp: float addition order only.
 SPLIT_TOL = 1e-5
 REFERENCE_RAYS = 631_145_620   # tests/golden/README.md:15-19
 RAY_TOL = 3e-3                 # tests/test_pipeline.py:88
@@ -129,6 +179,21 @@ GRAD_CASES = [  # (name, scene, width, height, spp, max_bounces, pad)
 ]
 FULL = dict(width=1280, height=720, spp=4, max_bounces=10, seed=FIT_SEED,
             early_exit=False)
+
+WAVEFRONT = (2, 3, 6)
+PHASE_CASES = [  # (name, scene, width, height, spp, max_bounces, schedules)
+    ("small 64x32 @ 8 spp @ 6 b (hollow glass)", "small", 64, 32, 8, 6,
+     [(2, 5), (2, 3, 6), (1,)]),
+    ("small 64x32 @ 8 spp @ 3 b (budget runs out)", "small", 64, 32, 8, 3,
+     [(2, 3, 6)]),
+    ("small 50x30 @ 2 spp @ 4 b (ragged)", "small", 50, 30, 2, 4,
+     [(2, 5), (2, 3, 6), (1,)]),
+]
+# Bytes a listed ray moves through one phase: 12 state floats in and out,
+# its id, slot and alive flag in, alive out, its count in and out.
+PHASE_RAY_BYTES = 12 * 4 * 2 + 4 + 4 + 1 + 1 + 4 * 2
+INDEX_CHUNK = 131072           # RenderConfig.ray_chunk, the pipeline's chunk
+INDEX_PLAIN_CHUNK = 65536      # (65,536 x 4,096) float temporaries: ~1 GB each
 
 CASES = [  # (name, scene, width, height, spp, max_bounces)
     ("large 160x90 @ 4 spp @ 10 b", "large", 160, 90, 4, 10),
@@ -212,7 +277,9 @@ def compare_case(label, scene_name, w, h, spp, mb):
 def reset_launches():
     megakernel.LAUNCHES = 0
     megakernel.ONESHOT_LAUNCHES = 0
+    megakernel.PHASE_LAUNCHES = 0
     mega_backward.LAUNCHES = 0
+    intersect_index.LAUNCHES = 0
 
 
 def bound_ms(n_bytes, n_ops):
@@ -242,6 +309,20 @@ def backward_bound(n, s_count, mb, live):
     per live bounce."""
     return bound_ms(4 * (21 * s_count + n * (10 + mb + 1 + 6)),
                     live * BACKWARD_OPS)
+
+
+def index_bound(n, s_count):
+    """The (4, S) table and six ray planes in, an int32 index and a bool per
+    ray out; a sphere test per row and ray."""
+    return bound_ms(4 * 4 * s_count + n * (6 * 4 + 4 + 1),
+                    n * s_count * SWEEP_OPS)
+
+
+def phase_bound(s_count, phases, listed, rays):
+    """The table once per phase and PHASE_RAY_BYTES per listed ray; a sweep
+    of every row per traced ray."""
+    return bound_ms(4 * 7 * s_count * phases + listed * PHASE_RAY_BYTES,
+                    rays * s_count * SWEEP_OPS)
 
 
 def grad_inputs(scene_name, cfg, pad):
@@ -590,11 +671,479 @@ def headline_vs_plain(img, rays):
     return err, k_ms, p_ms, pid.numel()
 
 
+def max_gap(k, p):
+    """Max abs difference over pairs of tensors (bool and int as float)."""
+    return max(float((a.double() - b.double()).abs().max()) if a.numel()
+               else 0.0 for a, b in zip(k, p))
+
+
+def index_gap(label, k, p):
+    """k, p: (idx, hit) of kernel and plain version; raise unless equal bit
+    for bit; returns (hits, max abs gap)."""
+    n_idx = int((k[0] != p[0]).sum())
+    n_hit = int((k[1] != p[1]).sum())
+    if n_idx or n_hit:
+        raise AssertionError(f"{label}: index kernel vs plain version: "
+                             f"{n_idx} indices and {n_hit} hit flags differ")
+    return int(k[1].sum()), max_gap(k, p)
+
+
+def index_frame(label, scene_name, pad):
+    """The index kernel on every primary ray of a 1280x720 @ 4 spp frame
+    (one launch) against its plain version in chunks of INDEX_PLAIN_CHUNK;
+    returns (prepared spheres, rays, max abs gap)."""
+    cfg = RenderConfig(**FULL)
+    _, prep, rays, _ = grad_inputs(scene_name, cfg, pad)
+    fn = lambda: intersect_index.closest_hit_index(prep, *rays, cfg.t_min)
+    fn()
+    k, k_ms, _, _ = launch_ms(fn)
+    table = intersect_index.pack(prep)
+    parts, p_ms = cuda_ms(lambda: [
+        intersect_index.closest_hit_index_reference(
+            table, *(r[lo:lo + INDEX_PLAIN_CHUNK] for r in rays), cfg.t_min)
+        for lo in range(0, rays[0].numel(), INDEX_PLAIN_CHUNK)])
+    p = tuple(torch.cat([q[c] for q in parts]) for c in range(2))
+    hits, err = index_gap(label, k, p)
+    print(f"[index] {label} ({prep.count} rows), {rays[0].numel()} primary "
+          f"rays: idx and hit equal, {hits} hits | kernel {k_ms:.3f} ms "
+          f"(one launch), plain {p_ms:.1f} ms (chunks of "
+          f"{INDEX_PLAIN_CHUNK})", flush=True)
+    return prep, rays, err
+
+
+def index_random(label, prep, n, seed):
+    """Seeded random rays, every 50th direction zero, kernel against plain
+    version; returns the max abs gap."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    o = (torch.rand((3, n), generator=g, device="cuda") * 2 - 1) * 6
+    o[1] = o[1].abs() + 0.2
+    d = torch.randn((3, n), generator=g, device="cuda")
+    d = d / d.norm(dim=0)
+    d[:, ::50] = 0.0
+    k = intersect_index.closest_hit_index(prep, *o, *d, 1e-3)
+    p = intersect_index.closest_hit_index_reference(intersect_index.pack(prep),
+                                                    *o, *d, 1e-3)
+    hits, err = index_gap(label, k, p)
+    print(f"[index] {label}: {n} random rays ({prep.count} rows), idx and "
+          f"hit equal, {hits} hits", flush=True)
+    return err
+
+
+def index_checks():
+    """The index kernel against its plain version on the medium and giant
+    frames and on random rays; returns (max abs gap, and ms, plain ms and
+    bound of one launch at the medium fit's chunk shape)."""
+    prep, rays, err = index_frame("medium 1280x720 @ 4 spp", "medium", 8)
+    chunk = [r[:INDEX_CHUNK].contiguous() for r in rays]
+    fn = lambda: intersect_index.closest_hit_index(prep, *chunk, 1e-3)
+    fn()
+    k, k_ms, _, _ = launch_ms(fn)
+    table = intersect_index.pack(prep)
+    p, p_ms = cuda_ms(lambda: intersect_index.closest_hit_index_reference(
+        table, *chunk, 1e-3))
+    errs = [err, index_gap("medium chunk", k, p)[1]]
+    bound = index_bound(INDEX_CHUNK, prep.count)
+    print(f"[index] medium, one chunk of {INDEX_CHUNK} rays x {prep.count} "
+          f"rows: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+    errs.append(index_random("medium", prep, 777, 1))
+    giant, _, err = index_frame("giant 1280x720 @ 4 spp", "giant", 8)
+    errs += [err, index_random("giant", giant, 777, 2),
+             index_random("giant", giant, 100_000, 3)]
+    return max(errs), k_ms, p_ms, bound
+
+
+def phase_gap(label, k, p):
+    """k, p: tuples of tensors; raise unless each pair is equal bit for
+    bit; returns the max abs gap."""
+    n_diff = sum(int((a != b).sum()) for a, b in zip(k, p))
+    if n_diff:
+        raise AssertionError(f"{label}: phase kernel vs plain version: "
+                             f"{n_diff} values differ")
+    return max_gap(k, p)
+
+
+def phase_case(label, scene_name, w, h, spp, mb, schedules):
+    """Each phase from the same state, kernel against plain version, then
+    the whole wavefront trace against trace_wavefront_reference; returns
+    the max abs gap."""
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_bounces=mb)
+    packed, _ = packed_inputs(scene_name, cfg)
+    ray_id, x, y = ray_coords(cfg, "cuda")
+    camera = builders.SCENES[scene_name](cfg.aspect,
+                                         device="cuda").camera.build("cuda")
+    rays = [r.contiguous() for r in primary_rays(camera, cfg, x, y, ray_id)]
+    errs = []
+    for schedule in schedules:
+        state, alive, cnt = megakernel.wavefront_state(*rays, ray_id, cfg)
+        spans = megakernel.wavefront_spans(schedule, mb)
+        for k, (b0, bend) in enumerate(spans):
+            slots = alive.nonzero()[:, 0].to(torch.int32) if k else None
+            ref = [t.clone() for t in (state, alive, cnt)]
+            megakernel.wavefront_phase_reference(packed, ref[0], ref[1],
+                                                 ray_id, ref[2], slots, b0,
+                                                 bend, cfg)
+            megakernel.wavefront_phase(packed, state, alive, ray_id, cnt,
+                                       slots, b0, bend, cfg)
+            errs.append(phase_gap(f"{label} {schedule} phase {k}",
+                                  (state, alive, cnt), ref))
+        k_rad, k_cnt, k_total = megakernel.trace_wavefront(
+            packed, *rays, ray_id, cfg, schedule)
+        p_rad, p_cnt, p_total = megakernel.trace_wavefront_reference(
+            packed, *rays, ray_id, cfg, schedule)
+        errs.append(phase_gap(f"{label} {schedule} trace", (*k_rad, k_cnt),
+                              (*p_rad, p_cnt)))
+        if int(k_total) != int(p_total):
+            raise AssertionError(f"{label} {schedule}: ray totals differ")
+        print(f"[phase] {label}, schedule {schedule} (spans {spans}): every "
+              f"phase's state, alive flags and counts equal; trace radiance "
+              f"and counts equal, {int(k_total)} rays", flush=True)
+    return max(errs)
+
+
+def engine_inputs(scene, camera, cfg):
+    """The packed table, primary rays and ray ids render_image_megakernel
+    gives the one-shot and wavefront kernels."""
+    packed = megakernel.pack_spheres(prepare_trimmed(scene.spheres,
+                                                     scene.n_real))
+    ray_id, x, y = ray_coords(cfg, "cuda")
+    rays = [r.contiguous() for r in primary_rays(camera, cfg, x, y, ray_id)]
+    return packed, rays, ray_id
+
+
+def oneshot_vs_plain(label, packed, rays, ray_id, cfg, frame, n_frame):
+    """The one-shot kernel (no topology) on the engine's frame inputs, which
+    must reproduce the engine's image and ray count, against its plain
+    version over the whole frame in chunks of PLAIN_CHUNK rays: per-ray
+    radiance and counts equal bit for bit. Returns (max abs gap, kernel ms,
+    plain ms)."""
+    (k_rad, k_cnt, k_total), k_ms = cuda_ms(
+        lambda: megakernel.trace_oneshot(packed, *rays, ray_id, cfg))
+    if not (torch.equal(image_of_rays(*k_rad, cfg), frame)
+            and int(k_total) == n_frame):
+        raise AssertionError(f"{label}: the comparison launch does not "
+                             f"reproduce the one-shot engine's frame")
+    parts, p_ms = cuda_ms(lambda: plain_chunked(
+        lambda *t: megakernel.trace_topology_reference(packed, *t, cfg)[:2],
+        ray_id.numel(), *rays, ray_id))
+    p_rad = [torch.cat([q[0][c] for q in parts]) for c in range(3)]
+    p_cnt = torch.cat([q[1] for q in parts])
+    n_diff = sum(int((a != b).sum()) for a, b in zip((*k_rad, k_cnt),
+                                                      (*p_rad, p_cnt)))
+    if n_diff:
+        raise AssertionError(f"{label}: one-shot kernel vs plain version: "
+                             f"{n_diff} radiance values and counts differ")
+    print(f"[engines] {label}: one-shot kernel (no topology) on the frame's "
+          f"{ray_id.numel()} rays {k_ms:.2f} ms, plain version {p_ms:.1f} ms "
+          f"(chunks of {PLAIN_CHUNK}): radiance and counts equal",
+          flush=True)
+    return max_gap((*k_rad, k_cnt), (*p_rad, p_cnt)), k_ms, p_ms
+
+
+def phases_vs_plain(label, packed, rays, ray_id, cfg, frame, n_frame):
+    """The wavefront engine's frame again through megakernel._wavefront,
+    each phase from the same pre-phase state twice: the kernel between a
+    pair of CUDA events, and its plain version on a copy, over the same
+    listed rays in chunks of PLAIN_CHUNK. State, alive flags and counts
+    equal bit for bit after every phase, and the result must be the
+    engine's frame. Returns (max abs gap, kernel ms, plain ms, bound), ms
+    summed over the phases."""
+    ms, plain_ms, listed, errs = [], [], [], []
+
+    def phase(packed, state, alive, ray_id, cnt, slots, b0, bend, cfg):
+        ref = [t.clone() for t in (state, alive, cnt)]
+        todo = (torch.arange(ray_id.numel(), dtype=torch.int32,
+                             device=ray_id.device) if slots is None
+                else slots)
+        _, p_ms = cuda_ms(lambda: [
+            megakernel.wavefront_phase_reference(
+                packed, ref[0], ref[1], ray_id, ref[2],
+                todo[lo:lo + PLAIN_CHUNK], b0, bend, cfg)
+            for lo in range(0, todo.numel(), PLAIN_CHUNK)])
+        _, k_ms = cuda_ms(lambda: megakernel.wavefront_phase(
+            packed, state, alive, ray_id, cnt, slots, b0, bend, cfg))
+        errs.append(phase_gap(f"{label} phase [{b0}, {bend})",
+                              (state, alive, cnt), ref))
+        ms.append(k_ms)
+        plain_ms.append(p_ms)
+        listed.append(todo.numel())
+
+    rad, _, total = megakernel._wavefront(phase, packed, *rays, ray_id, cfg,
+                                          WAVEFRONT)
+    if not (torch.equal(image_of_rays(*rad, cfg), frame)
+            and int(total) == n_frame):
+        raise AssertionError(f"{label}: the checked phases do not reproduce "
+                             f"the wavefront engine's frame")
+    bound = phase_bound(packed.shape[1], len(ms), sum(listed), n_frame)
+    spans = megakernel.wavefront_spans(WAVEFRONT, cfg.max_bounces)
+    print(f"[engines] {label}: phase kernel, spans {spans}, rays listed "
+          f"{listed}: phases {', '.join(f'{t:.3f}' for t in ms)} ms = "
+          f"{sum(ms):.3f} ms; plain version "
+          f"{', '.join(f'{t:.1f}' for t in plain_ms)} ms = "
+          f"{sum(plain_ms):.1f} ms (chunks of {PLAIN_CHUNK}); every phase's "
+          f"state, alive flags and counts equal; bound {bound[0]:.4f} ms "
+          f"({bound[1]})", flush=True)
+    return max(errs), sum(ms), sum(plain_ms), bound
+
+
+def engines_full():
+    """The one-shot and wavefront engines at the CLI's full config on the
+    large scene, then both kernels against their plain versions on the
+    frames' own inputs; returns (one-shot launches, phase launches, one-shot
+    max abs gap, phase (max abs gap, ms, plain ms, bound))."""
+    cfg = get_config("full")
+    scene = builders.SCENES["large"](cfg.aspect, device="cuda")
+    camera = scene.camera.build("cuda")
+    render = lambda **kw: render_image_megakernel(
+        scene.spheres, camera, cfg, n_real=scene.n_real, **kw)
+    resp, n_resp = render()
+    render(respawn=False)
+    render(respawn=False, wavefront=WAVEFRONT)  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    (one, n_one), one_ms = cuda_ms(lambda: render(respawn=False))
+    (wave, n_wave), wave_ms = cuda_ms(
+        lambda: render(respawn=False, wavefront=WAVEFRONT))
+    launches = (megakernel.ONESHOT_LAUNCHES, megakernel.PHASE_LAUNCHES)
+    _, resp_ms = cuda_ms(render)
+    n_one, n_wave, n_resp = int(n_one), int(n_wave), int(n_resp)
+    label = (f"large {cfg.width}x{cfg.height} @ {cfg.spp} spp @ "
+             f"{cfg.max_bounces} b")
+    gap = float((one - resp).abs().max())
+    print(f"[engines] {label}, {cfg.num_primary_rays} primary rays: "
+          f"one-shot {one_ms:.2f} ms ({n_one} rays), wavefront {WAVEFRONT} "
+          f"{wave_ms:.2f} ms ({n_wave} rays), respawn {resp_ms:.2f} ms "
+          f"({n_resp} rays), whole frames between CUDA events; launches "
+          f"one-shot {launches[0]}, phase {launches[1]}; one-shot vs respawn "
+          f"image max abs gap {gap:.3e}", flush=True)
+    if launches != (1, len(megakernel.wavefront_spans(WAVEFRONT,
+                                                      cfg.max_bounces))):
+        raise AssertionError(f"{label}: engine launches {launches}")
+    if not (torch.equal(wave, one) and n_wave == n_one):
+        raise AssertionError(f"{label}: the wavefront engine differs from "
+                             f"the one-shot engine")
+    if n_one != n_resp or not gap <= SPLIT_TOL:
+        raise AssertionError(f"{label}: one-shot vs respawn: rays {n_one} "
+                             f"vs {n_resp}, image gap {gap}")
+    if not torch.isfinite(one).all():
+        raise AssertionError(f"{label}: non-finite pixels")
+
+    packed, rays, ray_id = engine_inputs(scene, camera, cfg)
+    one_err, k_ms, _ = oneshot_vs_plain(label, packed, rays, ray_id, cfg,
+                                        one, n_one)
+    # 6 ray planes and ids in, radiance and counts out, no topology.
+    bound = bound_ms(4 * (7 * packed.shape[1] + ray_id.numel() * 11),
+                     n_one * packed.shape[1] * SWEEP_OPS)
+    print(f"[engines] one-shot bound {bound[0]:.3f} ms ({bound[1]}), "
+          f"{bound[0] / k_ms:.3f} of its kernel's time, "
+          f"{bound[0] / one_ms:.3f} of its frame's", flush=True)
+    phase = phases_vs_plain(label, packed, rays, ray_id, cfg, wave, n_wave)
+    return launches + (one_err, phase)
+
+
+def parse_record(text):
+    """(version, seconds, rays, mrays/s) of one out_<scene>.txt record."""
+    version, secs, rays, mrays, tail = text.split("|")
+    if tail or not secs.endswith("s") or not mrays.endswith(" mrays/s"):
+        raise AssertionError(f"malformed record {text!r}")
+    return version, float(secs[:-1]), int(rays), float(mrays[:-8])
+
+
+def cli_run():
+    """The multi-scene CLI at its defaults; returns its one-shot launches."""
+    out_dir = tempfile.mkdtemp(prefix="rays1bench_cli_")
+    reset_launches()
+    cli.main(["--scenes", "small,medium,large", "--num", "1", "--out-dir",
+              out_dir])
+    launches = megakernel.ONESHOT_LAUNCHES
+    for name in ("small", "medium", "large"):
+        with open(os.path.join(out_dir, f"out_{name}.txt")) as f:
+            version, secs, rays, mrays = parse_record(f.read())
+        print(f"[cli] out_{name}.txt: {version} | {secs} s | {rays} rays | "
+              f"{mrays} mrays/s", flush=True)
+        if not (secs > 0 and rays > get_config("full").num_primary_rays
+                and mrays > 0):
+            raise AssertionError(f"out_{name}.txt: implausible record")
+    print(f"[cli] one-shot kernel launches {launches}", flush=True)
+    if launches < 3:
+        raise AssertionError("the CLI did not run the one-shot kernel")
+    return launches
+
+
+def pipeline_grads(cfg, scene, camera, pallas):
+    params = params_of(scene.spheres, ("center_x", "center_y", "radius",
+                                       "albedo_x", "albedo_y"))
+    img, n = render_image(with_params(scene.spheres, params), camera,
+                          cfg.replace(pallas_intersect=pallas))
+    torch.mean((img - 0.3) ** 2).backward()
+    return [img, n] + [p.grad for p in params.values()]
+
+
+def pipeline_index_vs_sweep():
+    """engine="pipeline" with the index kernel and with the plain sweep:
+    image, rays and gradients equal bit for bit."""
+    cfg = RenderConfig(width=160, height=90, spp=4, max_bounces=10,
+                       seed=FIT_SEED, early_exit=False)
+    scene = builders.SCENES["medium"](cfg.aspect, pad_multiple=8,
+                                      device="cuda")
+    camera = scene.camera.build("cuda")
+    before = intersect_index.LAUNCHES
+    k = pipeline_grads(cfg, scene, camera, True)
+    launches = intersect_index.LAUNCHES - before
+    p = pipeline_grads(cfg, scene, camera, False)
+    n_diff = sum(int((a != b).sum()) for a, b in zip(k, p))
+    print(f"[pipeline] medium 160x90 @ 4 spp @ 10 b: index kernel ({launches} "
+          f"launches) vs plain sweep: {n_diff} values differ in image, rays "
+          f"and gradients", flush=True)
+    if n_diff or launches != cfg.max_bounces + 1:
+        raise AssertionError("pipeline gradients differ with the index "
+                             "kernel")
+
+
+def peak_step_gib(scene, camera, cfg, target, remat):
+    """Peak device memory of one forward and backward of the pipeline loss
+    (GiB), and the index kernel's launches in the backward."""
+    params = params_of(perturb_albedos(scene.spheres, scene.n_real), ALBEDOS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    img, _ = render_image(with_params(scene.spheres, params), camera,
+                          inverse._grad_cfg(cfg), remat=remat)
+    loss = torch.mean((img - target) ** 2)
+    before = intersect_index.LAUNCHES
+    loss.backward()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() / 2**30,
+            intersect_index.LAUNCHES - before)
+
+
+@contextlib.contextmanager
+def recorded_index_calls(count):
+    """Inside the block, the first `count` calls of
+    intersect_index.closest_hit_index keep a copy of their table, ray
+    planes, t_min and result; the calls themselves are unchanged. Yields
+    the list of (table, rays, t_min, (idx, hit))."""
+    calls, launch = [], intersect_index.closest_hit_index
+
+    def record(prep, ox, oy, oz, dx, dy, dz, t_min):
+        rays = (ox, oy, oz, dx, dy, dz)
+        out = launch(prep, *rays, t_min)
+        if len(calls) < count:
+            calls.append((intersect_index.pack(prep),
+                          [r.detach().clone() for r in rays], t_min,
+                          tuple(t.clone() for t in out)))
+        return out
+
+    intersect_index.closest_hit_index = record
+    try:
+        yield calls
+    finally:
+        intersect_index.closest_hit_index = launch
+
+
+def index_bounces_vs_plain(label, calls):
+    """The index kernel's results on the recorded rays of one chunk's
+    bounces (0 = primary; later bounces start on sphere surfaces, near
+    t_min) against its plain version in chunks of INDEX_PLAIN_CHUNK, bit
+    for bit; returns the max abs gap."""
+    errs, hits = [], []
+    for b, (table, rays, t_min, k) in enumerate(calls):
+        n = rays[0].numel()
+        parts = [intersect_index.closest_hit_index_reference(
+            table, *(r[lo:lo + INDEX_PLAIN_CHUNK] for r in rays), t_min)
+            for lo in range(0, n, INDEX_PLAIN_CHUNK)]
+        p = tuple(torch.cat([q[c] for q in parts]) for c in range(2))
+        h, err = index_gap(f"{label}, bounce {b}", k, p)
+        errs.append(err)
+        hits.append(h)
+    print(f"[pipeline] {label}: index kernel on the first chunk's rays of "
+          f"bounces 0-{len(calls) - 1} as the fit gave them "
+          f"({calls[0][1][0].numel()} rays each), idx and hit equal to the "
+          f"plain version; hits per bounce {hits}", flush=True)
+    return max(errs)
+
+
+def pipeline_fit(scene_name, steps, engine):
+    """fit_scene through the pipeline on the medium recipe's workload;
+    returns (scene, camera, cfg, target, index launches, max abs gap of
+    the index kernel on the fit's first chunk of rays, every bounce)."""
+    cfg = RenderConfig(**FULL)
+    scene = builders.SCENES[scene_name](cfg.aspect, pad_multiple=8,
+                                        device="cuda")
+    camera = scene.camera.build("cuda")
+    route = inverse._pick_engine(scene.spheres, cfg, None, engine)
+    with torch.no_grad():
+        target = render_for_loss(scene.spheres, camera, cfg, engine=engine)
+    start = perturb_albedos(scene.spheres, scene.n_real)
+    inv = InverseConfig(learning_rate=1e-2, steps=steps, optimize=ALBEDOS)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # The first forward's first chunk calls the index kernel once a bounce.
+    with recorded_index_calls(cfg.max_bounces + 1) as calls:
+        _, losses = fit_scene(start, camera, target, cfg, inv, engine=engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = intersect_index.LAUNCHES
+    chunks = -(-cfg.num_primary_rays // cfg.ray_chunk)
+    want = chunks * (cfg.max_bounces + 1) * steps
+    label = (f"{scene_name} ({scene.spheres.count} rows) {cfg.width}x"
+             f"{cfg.height} @ {cfg.spp} spp @ {cfg.max_bounces} b, "
+             f"engine={engine!r} -> {route!r}")
+    print(f"[pipeline] {label}: {steps} Adam steps in {wall * 1e3:.1f} ms "
+          f"wall ({wall * 1e3 / steps:.1f} ms a step, first-call set-up "
+          f"included); losses {', '.join(f'{x:.6e}' for x in losses)}; "
+          f"index kernel launches {launches} (expected {chunks} chunks x "
+          f"{cfg.max_bounces + 1} bounces x {steps} = {want}); one-shot "
+          f"{megakernel.ONESHOT_LAUNCHES}, fused backward "
+          f"{mega_backward.LAUNCHES}", flush=True)
+    if route != "pipeline":
+        raise AssertionError(f"{label}: routed to {route!r}")
+    if launches != want or megakernel.ONESHOT_LAUNCHES or \
+            mega_backward.LAUNCHES:
+        raise AssertionError(f"{label}: launches differ from the pipeline's")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite loss")
+    if steps > 1 and not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall")
+    if len(calls) != cfg.max_bounces + 1 or \
+            calls[0][1][0].numel() != min(cfg.ray_chunk,
+                                          cfg.num_primary_rays):
+        raise AssertionError(f"{label}: did not record the first chunk's "
+                             f"{cfg.max_bounces + 1} bounces")
+    err = index_bounces_vs_plain(label, calls)
+    return scene, camera, cfg, target, launches, err
+
+
+def pipeline_checks():
+    """engine="pipeline": the medium fit, a warm step, peak memory with and
+    without remat, and the giant step through auto; returns the index
+    kernel's launches on those main paths and its max abs gap to its plain
+    version on their recorded bounces."""
+    scene, camera, cfg, target, medium, m_err = pipeline_fit(
+        "medium", 3, "pipeline")
+    start = perturb_albedos(scene.spheres, scene.n_real)
+    inv = InverseConfig(learning_rate=1e-2, optimize=ALBEDOS)
+    step, _ = make_train_step(start, camera, cfg, inv,
+                              params_of(start, ALBEDOS), engine="pipeline")
+    _, step_ms = cuda_ms(lambda: step(target))
+    peak = {remat: peak_step_gib(scene, camera, cfg, target, remat)
+            for remat in (True, False)}
+    print(f"[pipeline] medium warm step {step_ms:.1f} ms (CUDA events); "
+          f"peak device memory of one step: remat {peak[True][0]:.2f} GiB, "
+          f"without {peak[False][0]:.2f} GiB; index launches in the "
+          f"backward {peak[True][1]} / {peak[False][1]}", flush=True)
+    if peak[True][1] or peak[False][1]:
+        raise AssertionError("the backward launched the index kernel")
+    *_, giant, g_err = pipeline_fit("giant", 1, "auto")
+    return medium + giant, max(m_err, g_err)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     card = card_line()
     print(f"[card] {card}", flush=True)
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -629,6 +1178,18 @@ def main():
     print(f"[mem] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
+    index = index_checks()
+    phase_err = max(phase_case(*case) for case in PHASE_CASES)
+    *engine_launches, one_err, phase = engines_full()
+    phase = (max(phase_err, phase[0]),) + phase[1:]
+    a_err = max(a_err, one_err)
+    cli_launches = cli_run()
+    pipeline_index_vs_sweep()
+    index_launches, bounce_err = pipeline_checks()
+    index = (max(index[0], bounce_err),) + index[1:]
+    print(f"[time] every phase in {time.perf_counter() - started:.1f} s",
+          flush=True)
+
     print(f"[card] {card}")
     print(json.dumps({"kernels": [
         kernel_entry("respawn", "respawn.cu",
@@ -636,10 +1197,17 @@ def main():
                      max_err, k_ms, p_ms, r_bound),
         kernel_entry("oneshot", "oneshot.cu",
                      "rays1bench_tpu/kernels/megakernel.py:487",
-                     grad_launches[0], a_err, *a_full[1:]),
+                     grad_launches[0] + engine_launches[0] + cli_launches,
+                     a_err, *a_full[1:]),
         kernel_entry("mega_backward", "mega_backward.cu",
                      "rays1bench_tpu/kernels/mega_backward.py:227",
                      grad_launches[1], b_err, *b_full[1:]),
+        kernel_entry("intersect_index", "intersect_index.cu",
+                     "rays1bench_tpu/kernels/intersect_pallas.py:34",
+                     index_launches, *index),
+        kernel_entry("phase", "phase.cu",
+                     "rays1bench_tpu/kernels/megakernel.py:706",
+                     engine_launches[1], *phase),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,14 @@
 """Sustained gradient steps on one CUDA GPU (the port's tools/grad_bench.py).
 
     python -m rays1bench_tpu_torch.bench.grad --scene medium
+        [--engine mega|pipeline] [--steps N]
 
 One step is grad.inverse.make_train_step's: raygen, the topology kernel
 forward, the loss, the fused backward kernel with autograd's chain onto the
-scene, and one Adam step. The fit is the medium-fit recipe
+scene, and one Adam step (engine "mega"); or, with --engine pipeline, the
+plain fixed-trip renderer with the closest-hit index kernel as its sweep,
+autograd over every bounce (checkpointed per bounce when the frame has
+more than one chunk), and Adam. The fit is the medium-fit recipe
 (tools/medium_fit_probe.py): every albedo column, lr 1e-2, from the
 perturbation of perturb_albedos back to the scene's own render, so the loss
 is non-zero and falls and the geometry, and with it the rays traced a step,
@@ -16,11 +20,12 @@ events. Then, each measured once more:
     itself records (make_train_step's mark): forward (raygen, the topology
     kernel, the image), loss, backward (the fused kernel and autograd's
     chain onto the scene and camera tensors), Adam;
-  - each kernel alone on the last step's inputs (launch_ms: median of 3
-    launches, each timed alone behind a device-side wait, with the host's
-    time to issue it);
-  - three steps under torch.profiler: device busy time (the union of the
-    device events), the two kernels' share of it, and the idle share
+  - each mega kernel alone on the last step's inputs (launch_ms: median of
+    3 launches, each timed alone behind a device-side wait, with the host's
+    time to issue it), engine "mega" only;
+  - PROFILED_STEPS steps under torch.profiler: device busy time (the union
+    of the device events), each kernel's share of it, the device functions
+    that took longest, the count of device events, and the idle share
     1 - busy / wall.
 Prints one JSON line with the workload, s_per_step, steps_per_sec, losses,
 these splits, the rays traced per step, and the card's name and power limit.
@@ -30,6 +35,7 @@ Needs a CUDA device; raises without one.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import time
@@ -50,7 +56,13 @@ from rays1bench_tpu_torch.render.pipeline import primary_rays
 from rays1bench_tpu_torch.scene import builders
 from rays1bench_tpu_torch.scene.spheres import prepare
 
-KERNELS = {"oneshot": "oneshot_kernel", "mega_backward": "backward_kernel"}
+# The port's kernels by the name of their __global__ function; a device
+# event is a kernel's when its name holds "::<function>(" (torch's own
+# kernels, such as indexing_backward_kernel, do not match).
+KERNELS = {"oneshot": "oneshot_kernel", "mega_backward": "backward_kernel",
+           "intersect_index": "index_kernel"}
+TOP_KERNELS = 5
+PROFILED_STEPS = {"mega": 3, "pipeline": 1}
 ALBEDOS = ("albedo_x", "albedo_y", "albedo_z")
 MAX_BOUNCES = 10
 WARMUP = 2
@@ -147,7 +159,9 @@ def phase_ms(step, target):
 
 def device_split(step, target, steps=3):
     """torch.profiler over `steps` steps: (wall ms, device busy ms,
-    {kernel: device ms}) or None where the profiler saw no device event."""
+    {kernel: device ms}, [[name, device ms], ...] of the TOP_KERNELS
+    device functions that took longest, names cut at 80 characters, count
+    of device events) or None where the profiler saw no device event."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -163,11 +177,16 @@ def device_split(step, target, steps=3):
         return None
     span = lambda es: busy_us((e.time_range.start, e.time_range.end)
                               for e in es) / 1e3
-    return wall, span(dev), {k: span(e for e in dev if name in e.name)
-                             for k, name in KERNELS.items()}
+    by_name = collections.defaultdict(float)
+    for e in dev:
+        by_name[e.name[:80]] += (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
+    return wall, span(dev), {
+        k: span(e for e in dev if f"::{name}(" in e.name)
+        for k, name in KERNELS.items()}, [list(kv) for kv in top], len(dev)
 
 
-def run(scene_name, cfg, steps=8):
+def run(scene_name, cfg, steps=8, engine="mega"):
     """The measurements above for one scene and config, as a dict."""
     # Tight padding: the topology forward sweeps every row. The large
     # scene's 484 spheres pad to 512 rows, as in tools/grad_bench.py.
@@ -180,17 +199,19 @@ def run(scene_name, cfg, steps=8):
     start = perturb_albedos(scene.spheres, scene.n_real)
     inv = InverseConfig(learning_rate=1e-2, optimize=ALBEDOS)
     params = params_of(start, inv.optimize)
-    step, _ = make_train_step(start, camera, cfg, inv, params)
+    step, _ = make_train_step(start, camera, cfg, inv, params, engine=engine)
     for _ in range(WARMUP):
         step(target)
     losses, ms = cuda_ms(lambda: [step(target) for _ in range(steps)])
     per_step = ms / 1e3 / steps
     phases = phase_ms(step, target)
-    kernels, launches, rays = kernel_ms(with_params(start, params), camera,
-                                        cfg)
-    split = device_split(step, target)
+    kernels = launches = rays = None
+    if engine == "mega":
+        kernels, launches, rays = kernel_ms(with_params(start, params),
+                                            camera, cfg)
+    split = device_split(step, target, PROFILED_STEPS[engine])
     out = {
-        "scene": scene_name, "rows": scene.spheres.count,
+        "scene": scene_name, "engine": engine, "rows": scene.spheres.count,
         "width": cfg.width, "height": cfg.height, "spp": cfg.spp,
         "max_bounces": cfg.max_bounces, "steps": steps,
         "s_per_step": per_step, "steps_per_sec": 1.0 / per_step,
@@ -199,10 +220,13 @@ def run(scene_name, cfg, steps=8):
         "kernel_launch_ms": launches, "rays_per_step": rays,
         "profiled_steps": None}
     if split is not None:
-        wall, busy, by_kernel = split
-        out["profiled_steps"] = {"steps": 3, "wall_ms": wall,
+        wall, busy, by_kernel, top, events = split
+        out["profiled_steps"] = {"steps": PROFILED_STEPS[engine],
+                                 "wall_ms": wall,
                                  "device_busy_ms": busy,
                                  "kernel_device_ms": by_kernel,
+                                 "top_device_ms": top,
+                                 "device_events": events,
                                  "idle_share": 1.0 - busy / wall}
     return out
 
@@ -215,13 +239,14 @@ def main(argv=None):
     ap.add_argument("--height", type=int, default=720)
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--engine", default="mega", choices=["mega", "pipeline"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("rays1bench_tpu_torch.bench.grad needs a CUDA "
                          "device")
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        max_bounces=MAX_BOUNCES, early_exit=False)
-    out = run(args.scene, cfg, args.steps)
+    out = run(args.scene, cfg, args.steps, args.engine)
     out["device"] = torch.cuda.get_device_name(0)
     out["card"] = smi("name", "power.limit")[0]
     print(json.dumps(out))

@@ -42,9 +42,11 @@ def _setup(scene):
     return scene.camera.build(device), device
 
 
-def _render(scene, camera, cfg):
-    return render_image_megakernel(scene.spheres, camera, cfg,
-                                   n_real=scene.n_real or None)
+def default_render_fn(scene):
+    """The respawn engine with the scene's real-sphere trim:
+    (spheres, camera, cfg) -> (image, num_rays)."""
+    return lambda spheres, camera, cfg: render_image_megakernel(
+        spheres, camera, cfg, n_real=scene.n_real or None)
 
 
 def _timed(device, fn):
@@ -59,34 +61,39 @@ def _timed(device, fn):
     return out, start.elapsed_time(end) / 1e3
 
 
-def benchmark(scene, cfg: RenderConfig, num_runs: int = 1) -> List[BenchResult]:
-    """Render num_runs single frames through render_image_megakernel; one
-    BenchResult per frame. The warm-up frame (the kernel build included) is
-    not timed."""
+def benchmark(scene, cfg: RenderConfig, num_runs: int = 1,
+              render_fn=None) -> List[BenchResult]:
+    """Render num_runs single frames; one BenchResult per frame.
+    render_fn(spheres, camera, cfg) -> (image, num_rays) defaults to
+    default_render_fn(scene). The warm-up frame (the kernel build included)
+    is not timed."""
     camera, device = _setup(scene)
-    _render(scene, camera, cfg)
+    render = render_fn or default_render_fn(scene)
+    render(scene.spheres, camera, cfg)
     torch.cuda.synchronize(device)
     results = []
     for _ in range(num_runs):
-        (_, rays), dt = _timed(device, lambda: _render(scene, camera, cfg))
+        (_, rays), dt = _timed(device,
+                               lambda: render(scene.spheres, camera, cfg))
         results.append(BenchResult(dt, int(rays)))
     return results
 
 
 def benchmark_sustained(scene, cfg: RenderConfig, frames: int = 2,
-                        num_runs: int = 1) -> BenchResult:
-    """Sustained throughput: `frames` frames of render_image_megakernel
+                        num_runs: int = 1, render_fn=None) -> BenchResult:
+    """Sustained throughput: `frames` frames of render_fn (as in benchmark)
     queued back to back between two CUDA events, rays summed in int64. Best
     of num_runs (each after one untimed warm-up frame); divide
     elapsed_seconds by frames for per-frame time."""
     camera, device = _setup(scene)
-    _render(scene, camera, cfg)
+    render = render_fn or default_render_fn(scene)
+    render(scene.spheres, camera, cfg)
     torch.cuda.synchronize(device)
 
     def run():
         total = torch.zeros((), dtype=torch.int64, device=device)
         for _ in range(frames):
-            _, rays = _render(scene, camera, cfg)
+            _, rays = render(scene.spheres, camera, cfg)
             total += rays
         return total
 

@@ -5,10 +5,13 @@ A frozen dataclass of Python scalars. Nothing here is jit-static any more;
 the fields keep their JAX names so a config built for one package means the
 same render in the other. `ray_chunk` bounds the plain renderer's wavefront
 width. `early_exit=False` is the fixed-trip loop of the gradient path.
-`pallas_intersect` and `soft_silhouette` are carried for field parity with
-the JAX config, but the port has only the plain sweep and the hard
-renderer, so a value that asks for another mode raises instead of being
-ignored.
+`pallas_intersect` keeps the JAX meaning: the plain renderer
+(render/pipeline.render_image) then finds each bounce's winning row with the
+closest-hit index kernel (kernels/intersect_index.py) instead of the plain
+sweep; None is off there and on in the gradient path (grad/inverse._grad_cfg).
+`soft_silhouette` is carried for field parity, but the port renders hard
+silhouettes only, so a value that asks for the soft renderer raises instead
+of being ignored.
 """
 
 from __future__ import annotations
@@ -36,10 +39,6 @@ class RenderConfig:
     soft_silhouette: float = 0.0
 
     def __post_init__(self):
-        if self.pallas_intersect:
-            raise ValueError("pallas_intersect=True (the closest-hit index "
-                             "kernel) is not ported; the port uses the plain "
-                             "sweep")
         if self.soft_silhouette != 0.0:
             raise ValueError("soft_silhouette > 0 (the soft renderer) is not "
                              "ported; the port renders hard silhouettes")
@@ -72,3 +71,8 @@ PRESETS = {
     "baseline_large_4spp": RenderConfig(width=1280, height=720, spp=4, max_bounces=10),
 }
 
+
+def get_config(name: str, **overrides) -> RenderConfig:
+    """The preset `name`, with fields replaced by `overrides`."""
+    cfg = PRESETS[name]
+    return cfg.replace(**overrides) if overrides else cfg

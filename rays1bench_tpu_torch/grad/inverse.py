@@ -1,18 +1,23 @@
 """Inverse rendering: Adam-fit scene parameters to a target image through the
 gradient path (rays1bench_tpu/grad/inverse.py, hard silhouettes).
 
-The hit topology is fixed under differentiation (the megakernel forward
-records it, grad/mega.py), so gradients flow through hit distances, normals
-and material columns, not through which sphere is hit. One training step is
-the topology kernel, the fused backward kernel, autograd's chain onto the
-scene leaves, and one torch.optim.Adam step with optax's defaults (betas
-0.9 / 0.999, eps 1e-8). JAX's `scan_steps` (several steps per dispatch
-through lax.scan) becomes the plain loop of fit_scene.
+The hit topology is fixed under differentiation, so gradients flow through
+hit distances, normals and material columns, not through which sphere is
+hit. Two engines, as in the JAX package:
+- "mega": the topology kernel forward and the fused backward kernel
+  (grad/mega.py); its image carries the kernel's 8-bit albedos.
+- "pipeline": the plain fixed-trip renderer (render/pipeline.render_image)
+  with the closest-hit index kernel as its sweep (cfg.pallas_intersect,
+  which _grad_cfg turns on) and autograd over the O(N) chain, each bounce
+  checkpointed when the frame has more than one chunk; exact albedos.
+One training step is the forward, the loss, the backward and one
+torch.optim.Adam step with optax's defaults (betas 0.9 / 0.999, eps 1e-8).
+JAX's `scan_steps` (several steps per dispatch through lax.scan) becomes
+the plain loop of fit_scene.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP item:
-engine="pipeline" (the XLA fixed-trip renderer with the Pallas index
-intersector), a device mesh (the sharded fused gradient), and fit_camera
-(the differentiable camera constructor). Soft silhouettes are refused by
+Not ported yet, each raising NotImplementedError with its ROADMAP item: a
+device mesh (the sharded fused gradient) and fit_camera (the
+differentiable camera constructor). Soft silhouettes are refused by
 RenderConfig itself.
 """
 
@@ -30,6 +35,7 @@ from rays1bench_tpu_torch.grad import checkpoint as ckpt
 from rays1bench_tpu_torch.grad.mega import render_image_mega
 from rays1bench_tpu_torch.kernels.mega_backward import supported
 from rays1bench_tpu_torch.render.camera import Camera
+from rays1bench_tpu_torch.render.pipeline import render_image
 from rays1bench_tpu_torch.scene.soa_spheres import SphereSOA
 
 
@@ -49,9 +55,15 @@ class InverseConfig:
 
 
 def _grad_cfg(cfg: RenderConfig) -> RenderConfig:
-    """The gradient path's config: the fixed-trip loop (the replay is
-    fixed-trip by construction)."""
-    return cfg.replace(early_exit=False) if cfg.early_exit else cfg
+    """The gradient path's config: the fixed-trip loop (autograd needs every
+    bounce, and the replay is fixed-trip by construction), and the
+    closest-hit index kernel as the pipeline's sweep unless the caller chose
+    (pallas_intersect None -> True)."""
+    if cfg.early_exit:
+        cfg = cfg.replace(early_exit=False)
+    if cfg.pallas_intersect is None:
+        cfg = cfg.replace(pallas_intersect=True)
+    return cfg
 
 
 def params_of(spheres: SphereSOA, names: Tuple[str, ...]
@@ -69,34 +81,40 @@ def with_params(spheres: SphereSOA, params: Dict[str, torch.Tensor]
 
 def _pick_engine(spheres: SphereSOA, cfg: RenderConfig, mesh,
                  engine: str) -> str:
-    """Resolve engine="auto": "mega" (the topology kernel forward and the
-    fused kernel backward) on every device; on the CPU it runs the plain
-    versions."""
+    """Resolve engine="auto": "mega" where the fused backward takes the
+    scene (kernels/mega_backward.supported: up to 2,755 rows and 50
+    bounces), else "pipeline", as the JAX package's _pick_engine does with
+    fused_supported. An explicit "mega" on a scene it cannot take raises.
+    Unlike the JAX package, auto stays on "mega" on the CPU as well: JAX
+    sends the CPU to the pipeline only so that its Pallas interpret mode
+    stays opt-in, and the port's CPU path is plain torch either way."""
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh (the sharded fused gradient) is not ported: "
             "ROADMAP.md, queue 1, items 3 and 7")
-    if engine == "pipeline":
-        raise NotImplementedError(
-            "engine='pipeline' (the fixed-trip renderer with the Pallas "
-            "index intersector) is not ported: ROADMAP.md, queue 1, items 3 "
-            "and 6, and queue 2, item 4")
-    if engine not in ("auto", "mega"):
+    if engine not in ("auto", "mega", "pipeline"):
         raise ValueError(f"unknown engine {engine!r}")
-    if not supported(spheres.count, cfg):
+    fits = supported(spheres.count, cfg)
+    if engine == "mega" and not fits:
         raise ValueError(f"the fused backward does not take {spheres.count} "
                          f"rows at max_bounces={cfg.max_bounces} "
-                         f"(kernels/mega_backward.supported)")
-    return "mega"
+                         f"(kernels/mega_backward.supported); use "
+                         f"engine='pipeline'")
+    if engine == "auto":
+        return "mega" if fits else "pipeline"
+    return engine
 
 
 def render_for_loss(spheres: SphereSOA, camera: Camera, cfg: RenderConfig,
                     mesh=None, engine: str = "auto") -> torch.Tensor:
-    """Differentiable linear-radiance render. Its value comes from the
-    topology kernel, whose albedos are 8-bit (megakernel.pack_spheres):
-    render the target through the same engine."""
-    _pick_engine(spheres, cfg, mesh, engine)
-    img, _ = render_image_mega(spheres, camera, _grad_cfg(cfg))
+    """Differentiable linear-radiance render. Through "mega" its value comes
+    from the topology kernel, whose albedos are 8-bit
+    (megakernel.pack_spheres); through "pipeline" the albedos are exact.
+    Render the target through the same engine."""
+    if _pick_engine(spheres, cfg, mesh, engine) == "mega":
+        img, _ = render_image_mega(spheres, camera, _grad_cfg(cfg))
+    else:
+        img, _ = render_image(spheres, camera, _grad_cfg(cfg))
     return img
 
 

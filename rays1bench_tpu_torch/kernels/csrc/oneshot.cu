@@ -1,13 +1,15 @@
-// One-shot path tracer with hit topology, for Hopper (sm_90a): the forward
-// of the gradient path.
+// One-shot path tracer, optionally with hit topology, for Hopper (sm_90a):
+// the one-shot render engine and the forward of the gradient path.
 //
 // Replaces the Pallas kernel rays1bench_tpu/kernels/megakernel.py `_kernel`
-// with emit_topology=True (launched by `trace_pallas`), hard mode. Given N
-// primary rays and their global ids, it traces each ray to completion and
-// writes per-ray radiance, per-ray counts of traced rays, and for every
-// bounce b the winning sphere row of a live lane that hit (-1 otherwise).
-// Plain version and wrapper: rays1bench_tpu_torch/kernels/megakernel.py
-// (`trace_topology_reference`, `trace_topology`).
+// (launched by `trace_pallas`), hard mode. Given N primary rays and their
+// global ids, it traces each ray to completion and writes per-ray radiance,
+// per-ray counts of traced rays and, when `topo` is not null
+// (emit_topology=True), for every bounce b the winning sphere row of a live
+// lane that hit (-1 otherwise). A null `topo` skips the plane writes: the
+// one-shot render engine. Plain version and wrappers:
+// rays1bench_tpu_torch/kernels/megakernel.py (`trace_topology_reference`,
+// `trace_topology`, `trace_oneshot`).
 //
 // Design. One thread owns one ray and runs the Pallas kernel's per-bounce
 // order: count the step, sweep, record the topology plane, add sky on a
@@ -101,7 +103,7 @@ oneshot_kernel(const float* __restrict__ spheres, int S,
           }
         }
       }
-      topo[(size_t)b * N + i] = plane;
+      if (topo) topo[(size_t)b * N + i] = plane;
     }
     rr_out[i] = rr;
     rg_out[i] = rg;
@@ -124,7 +126,8 @@ oneshot_kernel(const float* __restrict__ spheres, int S,
 
 // Launch on `stream`; returns the cudaError_t of the attribute call or the
 // launch (0 on success). Outputs are per ray in input order; topo is
-// (max_bounces+1, N) row-major; *total must be zero on entry; N > 0.
+// (max_bounces+1, N) row-major, or null for no topology; *total must be zero
+// on entry; N > 0.
 extern "C" int rays1_oneshot_launch(
     const float* spheres, int S, const float* ox, const float* oy,
     const float* oz, const float* dx, const float* dy, const float* dz,

@@ -3,13 +3,17 @@
 
 `trace_respawn` is the counterpart of `trace_pallas_respawn`: every sample
 of every pixel traced to completion, returning per-pixel radiance sums and
-per-pixel ray counts in image order. `trace_topology` is the counterpart of
-`trace_pallas(emit_topology=True)`, the gradient path's forward: one thread
-per given primary ray, per-ray radiance and counts, and the winning sphere
-row of every bounce. On a CUDA tensor each launches its kernel
-(csrc/respawn.cu, csrc/oneshot.cu, built by kernels/build.py); on a CPU
-tensor it runs its plain torch version (`trace_respawn_reference`,
-`trace_topology_reference`). There is no fallback between the two: a CUDA
+per-pixel ray counts in image order. `trace_oneshot` and `trace_topology`
+are the counterparts of `trace_pallas` without and with emit_topology: one
+thread per given primary ray, per-ray radiance and counts, and with
+topology the winning sphere row of every bounce (the gradient path's
+forward). `trace_wavefront` is the counterpart of `trace_pallas_wavefront`:
+phases of bounces (`wavefront_phase`, one launch of the phase kernel each)
+with the live rays listed between phases. On a CUDA tensor each launches
+its kernel (csrc/respawn.cu, csrc/oneshot.cu, csrc/phase.cu, built by
+kernels/build.py); on a CPU tensor it runs its plain torch version
+(`trace_respawn_reference`, `trace_topology_reference`,
+`wavefront_phase_reference`). There is no fallback between the two: a CUDA
 input launches the kernel or raises.
 
 All read the same packed tables as the Pallas kernels, kept bit for bit:
@@ -19,9 +23,10 @@ mt*32 + param) and the 19-float camera row of `pack_camera`. `ref_idx` and
 `fuzz` therefore decode to the same floats as in the JAX kernel, which is
 what makes ray counts comparable. Dropped TPU workarounds: the pixel-tile
 slot permutation (the kernels read and write in ray or image order),
-`tile_rays`, `unroll`, `sync_every` and `debug_iters`. Without
-`sync_every` there is no overshoot past max_bounces, so the topology write
-guard of the Pallas kernel has nothing to guard.
+`tile_rays`, `unroll`, `sync_every`, `debug_iters` and the wavefront's
+row-granular argsort compaction (see trace_wavefront). Without `sync_every`
+there is no overshoot past max_bounces, so the topology write guard of the
+Pallas kernel has nothing to guard.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ from rays1bench_tpu_torch.core.config import RenderConfig
 from rays1bench_tpu_torch.core.vecmath import sqrt
 from rays1bench_tpu_torch.kernels import build
 from rays1bench_tpu_torch.render.camera import Camera
-from rays1bench_tpu_torch.render.integrator import trace
+from rays1bench_tpu_torch.render.integrator import (bounce_step,
+                                                    initial_state, trace)
 from rays1bench_tpu_torch.render.intersect import HitRecord
 from rays1bench_tpu_torch.render.pipeline import primary_rays
 from rays1bench_tpu_torch.scene.spheres import PreparedSpheres
@@ -46,10 +52,14 @@ _BIG = 3.0e38
 # kernel's static shared arrays.
 _MAX_TABLE_BYTES = 232448 - 1024
 
-# Kernel launches made by trace_respawn and by trace_topology (one per
-# call on a CUDA tensor).
+# Kernel launches made by trace_respawn, by trace_topology and
+# trace_oneshot (one kernel), and by wavefront_phase (one per call on a CUDA
+# tensor that has rays to advance).
 LAUNCHES = 0
 ONESHOT_LAUNCHES = 0
+PHASE_LAUNCHES = 0
+# Float planes of the wavefront state: ox oy oz dx dy dz ar ag ab rr rg rb.
+STATE_PLANES = 12
 
 
 def pack_spheres(prep: PreparedSpheres) -> torch.Tensor:
@@ -133,6 +143,15 @@ def closest_hit_record(packed: torch.Tensor, best, bt, ox, oy, oz,
         fuzz=mparam, ref_idx=torch.where(mt_i == 2, mparam, 1.0))
 
 
+def packed_intersector(packed: torch.Tensor, t_min: float):
+    """intersector(ox..dz) -> HitRecord of the packed-table sweep, for
+    render.integrator."""
+    def intersector(ox, oy, oz, dx, dy, dz):
+        best, bt = sweep(packed, ox, oy, oz, dx, dy, dz, t_min)
+        return closest_hit_record(packed, best, bt, ox, oy, oz, dx, dy, dz)
+    return intersector
+
+
 def _span(cfg: RenderConfig, sample_span):
     s_lo, s_hi = (0, cfg.spp) if sample_span is None else sample_span
     if not 0 <= s_lo <= s_hi <= cfg.spp:
@@ -155,11 +174,7 @@ def trace_respawn_reference(packed: torch.Tensor, cam: torch.Tensor, pid, x,
     s_lo, s_hi = _span(cfg, sample_span)
     camera = unpack_camera(cam)
     t_min = cfg.t_min
-
-    def intersector(ox, oy, oz, dx, dy, dz):
-        best, bt = sweep(packed, ox, oy, oz, dx, dy, dz, t_min)
-        return closest_hit_record(packed, best, bt, ox, oy, oz, dx, dy, dz)
-
+    intersector = packed_intersector(packed, t_min)
     active = pid < cfg.num_pixels
     sums = [torch.zeros_like(x) for _ in range(3)]
     cnt = torch.zeros_like(pid, dtype=torch.int32)
@@ -182,10 +197,12 @@ def check_tensor(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_table_fits(s_count):
-    if NUM_SPHERE_ROWS * 4 * s_count > _MAX_TABLE_BYTES:
+def check_table_fits(s_count, rows=NUM_SPHERE_ROWS):
+    """Raise unless a (rows, s_count) float32 table fits in a block's
+    dynamic shared memory."""
+    if rows * 4 * s_count > _MAX_TABLE_BYTES:
         raise ValueError(f"{s_count} sphere rows need "
-                         f"{NUM_SPHERE_ROWS * 4 * s_count} B of shared memory; "
+                         f"{rows * 4 * s_count} B of shared memory; "
                          f"a block has at most {_MAX_TABLE_BYTES}")
 
 
@@ -229,7 +246,7 @@ def trace_respawn(packed: torch.Tensor, cam: torch.Tensor,
         return rad, cnt, cnt.sum(dtype=torch.int64)
     if device.type != "cuda":
         raise ValueError(f"trace_respawn runs on cuda or cpu, not {device}")
-    _check_table_fits(s_count)
+    check_table_fits(s_count)
     if npix * cfg.spp >= 2 ** 31:
         raise ValueError("ray ids must fit in int32")
 
@@ -298,6 +315,49 @@ def _oneshot_kernel():
     return fn
 
 
+def _oneshot(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
+             cfg: RenderConfig, emit_topology: bool):
+    """trace_oneshot and trace_topology: ((rr, rg, rb), cnt, total, topo or
+    None)."""
+    global ONESHOT_LAUNCHES
+    device = packed.device
+    n = ox.shape[0] if ox.dim() == 1 else -1
+    s_count = packed.shape[1] if packed.dim() == 2 else -1
+    check_tensor("packed", packed, torch.float32, (NUM_SPHERE_ROWS, s_count),
+                 device)
+    check_rays(n, device, ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz,
+               ray_id=ray_id)
+    if device.type == "cpu":
+        rad, cnt, topo = trace_topology_reference(packed, ox, oy, oz, dx, dy,
+                                                  dz, ray_id, cfg)
+        return (rad, cnt, cnt.sum(dtype=torch.int64),
+                topo if emit_topology else None)
+    if device.type != "cuda":
+        raise ValueError(f"the one-shot kernel runs on cuda or cpu, not "
+                         f"{device}")
+    check_table_fits(s_count)
+
+    rr, rg, rb = (torch.empty(n, dtype=torch.float32, device=device)
+                  for _ in range(3))
+    cnt = torch.empty(n, dtype=torch.int32, device=device)
+    topo = (torch.empty((cfg.max_bounces + 1, n), dtype=torch.int32,
+                        device=device) if emit_topology else None)
+    total = torch.zeros(1, dtype=torch.int64, device=device)
+    if n == 0:
+        return (rr, rg, rb), cnt, total[0], topo
+    fn = _oneshot_kernel()
+    err = fn(packed.data_ptr(), s_count, ox.data_ptr(), oy.data_ptr(),
+             oz.data_ptr(), dx.data_ptr(), dy.data_ptr(), dz.data_ptr(),
+             ray_id.data_ptr(), n, cfg.num_primary_rays, cfg.max_bounces,
+             cfg.t_min, cfg.seed, rr.data_ptr(), rg.data_ptr(), rb.data_ptr(),
+             cnt.data_ptr(), None if topo is None else topo.data_ptr(),
+             total.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"oneshot kernel launch failed: cudaError {err}")
+    ONESHOT_LAUNCHES += 1
+    return (rr, rg, rb), cnt, total[0], topo
+
+
 def trace_topology(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
                    cfg: RenderConfig):
     """Trace N given primary rays, recording each bounce's winning row.
@@ -312,38 +372,158 @@ def trace_topology(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
     tensors launch the kernel of csrc/oneshot.cu on the current stream,
     which writes every topology plane itself; CPU tensors run
     trace_topology_reference."""
-    global ONESHOT_LAUNCHES
+    return _oneshot(packed, ox, oy, oz, dx, dy, dz, ray_id, cfg, True)
+
+
+def trace_oneshot(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
+                  cfg: RenderConfig):
+    """Trace N given primary rays to completion, one thread per ray: the
+    one-shot render engine (trace_pallas without topology). Same inputs as
+    trace_topology; returns ((rr, rg, rb) float32[N], cnt int32[N], total
+    int64 0-dim tensor). The kernel of csrc/oneshot.cu writes no topology
+    and the wrapper allocates none; the plain version is
+    trace_topology_reference."""
+    return _oneshot(packed, ox, oy, oz, dx, dy, dz, ray_id, cfg, False)[:3]
+
+
+def wavefront_spans(schedule, max_bounces: int):
+    """The (b0, bend) bounce span of each phase that runs, with the JAX
+    schedule's rules (megakernel.py:1049-1061): the cumulative budget is
+    clamped to max_bounces+1, phases past it are not run, and the last
+    phase is extended to max_bounces+1."""
+    if not schedule or min(schedule) < 1:
+        raise ValueError(f"a wavefront schedule is a non-empty tuple of "
+                         f"positive bounce counts, not {schedule!r}")
+    spans, b0 = [], 0
+    for i, k in enumerate(schedule):
+        if b0 > max_bounces:
+            break
+        bend = (max_bounces + 1 if i == len(schedule) - 1
+                else min(b0 + k, max_bounces + 1))
+        spans.append((b0, bend))
+        b0 = bend
+    return spans
+
+
+def wavefront_state(ox, oy, oz, dx, dy, dz, ray_id, cfg: RenderConfig):
+    """The carried state before the first phase: (state float32[12, N] =
+    origin, direction, unit attenuation, zero radiance; alive bool[N],
+    false on padding ids >= cfg.num_primary_rays; cnt int32[N] zeros)."""
+    st = initial_state(ox, oy, oz, dx, dy, dz, ray_id < cfg.num_primary_rays,
+                       ray_id)
+    return torch.stack(st[:STATE_PLANES]), st[12], st[13]
+
+
+def wavefront_phase_reference(packed: torch.Tensor, state, alive, ray_id, cnt,
+                              slots, b0: int, bend: int, cfg: RenderConfig):
+    """Plain version of the phase kernel, on any device, in place: advance
+    the rays listed in slots (int32[M], or None for all) from absolute
+    bounce b0 while b <= max_bounces and b < bend, through
+    render.integrator.bounce_step with the packed-table sweep; write their
+    state and alive flag back and add their counts to cnt."""
+    sel = slice(None) if slots is None else slots.long()
+    st = (*state[:, sel].unbind(0), alive[sel],
+          torch.zeros_like(cnt[sel]))
+    rid = ray_id[sel]
+    intersector = packed_intersector(packed, cfg.t_min)
+    for b in range(b0, min(bend, cfg.max_bounces + 1)):
+        if not bool(st[12].any()):
+            break
+        st = bounce_step(st, b, cfg.seed, rid, cfg.max_bounces, intersector)
+    state[:, sel] = torch.stack(st[:STATE_PLANES])
+    alive[sel] = st[12]
+    cnt[sel] += st[13]
+
+
+def _phase_kernel():
+    lib = build.load("phase", "phase.cu")
+    fn = lib.rays1_phase_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, f, ctypes.c_uint32, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def wavefront_phase(packed: torch.Tensor, state, alive, ray_id, cnt, slots,
+                    b0: int, bend: int, cfg: RenderConfig):
+    """One wavefront phase, in place (the counterpart of one launch of
+    _phase_kernel): the rays listed in slots advance over bounces
+    [b0, bend). packed: float32 (7, S); state: float32 (12, N); alive:
+    bool[N]; ray_id, cnt: int32[N]; slots: int32[M] or None (all N). CUDA
+    tensors launch the kernel of csrc/phase.cu on the current stream (none
+    when M is 0); CPU tensors run wavefront_phase_reference."""
+    global PHASE_LAUNCHES
     device = packed.device
-    n = ox.shape[0] if ox.dim() == 1 else -1
+    n = ray_id.shape[0] if ray_id.dim() == 1 else -1
     s_count = packed.shape[1] if packed.dim() == 2 else -1
     check_tensor("packed", packed, torch.float32, (NUM_SPHERE_ROWS, s_count),
                  device)
-    check_rays(n, device, ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz,
-               ray_id=ray_id)
+    check_tensor("state", state, torch.float32, (STATE_PLANES, n), device)
+    check_tensor("alive", alive, torch.bool, (n,), device)
+    check_tensor("cnt", cnt, torch.int32, (n,), device)
+    check_rays(n, device, ray_id=ray_id)
+    m = n if slots is None else slots.shape[0]
+    if slots is not None:
+        check_tensor("slots", slots, torch.int32, (m,), device)
     if device.type == "cpu":
-        rad, cnt, topo = trace_topology_reference(packed, ox, oy, oz, dx, dy,
-                                                  dz, ray_id, cfg)
-        return rad, cnt, cnt.sum(dtype=torch.int64), topo
+        return wavefront_phase_reference(packed, state, alive, ray_id, cnt,
+                                         slots, b0, bend, cfg)
     if device.type != "cuda":
-        raise ValueError(f"trace_topology runs on cuda or cpu, not {device}")
-    _check_table_fits(s_count)
-
-    rr, rg, rb = (torch.empty(n, dtype=torch.float32, device=device)
-                  for _ in range(3))
-    cnt = torch.empty(n, dtype=torch.int32, device=device)
-    topo = torch.empty((cfg.max_bounces + 1, n), dtype=torch.int32,
-                       device=device)
-    total = torch.zeros(1, dtype=torch.int64, device=device)
-    if n == 0:
-        return (rr, rg, rb), cnt, total[0], topo
-    fn = _oneshot_kernel()
-    err = fn(packed.data_ptr(), s_count, ox.data_ptr(), oy.data_ptr(),
-             oz.data_ptr(), dx.data_ptr(), dy.data_ptr(), dz.data_ptr(),
-             ray_id.data_ptr(), n, cfg.num_primary_rays, cfg.max_bounces,
-             cfg.t_min, cfg.seed, rr.data_ptr(), rg.data_ptr(), rb.data_ptr(),
-             cnt.data_ptr(), topo.data_ptr(), total.data_ptr(),
-             torch.cuda.current_stream(device).cuda_stream)
+        raise ValueError(f"wavefront_phase runs on cuda or cpu, not {device}")
+    check_table_fits(s_count)
+    if m == 0:
+        return None
+    err = _phase_kernel()(
+        packed.data_ptr(), s_count, state.data_ptr(), alive.data_ptr(),
+        ray_id.data_ptr(), cnt.data_ptr(),
+        None if slots is None else slots.data_ptr(), m, n, b0, bend,
+        cfg.max_bounces, cfg.t_min, cfg.seed,
+        torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"oneshot kernel launch failed: cudaError {err}")
-    ONESHOT_LAUNCHES += 1
-    return (rr, rg, rb), cnt, total[0], topo
+        raise RuntimeError(f"phase kernel launch failed: cudaError {err}")
+    PHASE_LAUNCHES += 1
+    return None
+
+
+def _wavefront(phase, packed, ox, oy, oz, dx, dy, dz, ray_id,
+               cfg: RenderConfig, schedule):
+    state, alive, cnt = wavefront_state(ox, oy, oz, dx, dy, dz, ray_id, cfg)
+    for k, (b0, bend) in enumerate(wavefront_spans(schedule,
+                                                   cfg.max_bounces)):
+        # The compaction: a stable partition listing the live rays in slot
+        # order (every ray in the first phase).
+        slots = alive.nonzero()[:, 0].to(torch.int32) if k else None
+        phase(packed, state, alive, ray_id, cnt, slots, b0, bend, cfg)
+    return (state[9], state[10], state[11]), cnt, cnt.sum(dtype=torch.int64)
+
+
+def trace_wavefront(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
+                    cfg: RenderConfig, schedule=(2, 3, 6)):
+    """Trace N given primary rays in phases of bounces, listing the live
+    rays between phases (trace_pallas_wavefront). Same inputs and outputs
+    as trace_oneshot, and per ray bit for bit its result: ((rr, rg, rb)
+    float32[N] in input slot order, cnt int32[N], total int64 0-dim).
+    schedule: bounces per phase (wavefront_spans).
+
+    Compaction is per ray: after each phase but the last, the live slots
+    are listed (torch.nonzero, slot order kept) and the next phase launches
+    one thread per listed ray, which reads and writes that ray's state in
+    place, so no state moves and the output needs no unpermute. The JAX
+    package compacts 128-lane rows by argsort because per-ray argsort was
+    too slow on its TPU (megakernel.py:978-985); on the GPU a dead thread
+    costs nothing once it is off the list. Each listing reads its count
+    back to the host. CUDA tensors launch csrc/phase.cu; CPU tensors run
+    trace_wavefront_reference."""
+    n = ox.shape[0] if ox.dim() == 1 else -1
+    check_rays(n, packed.device, ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz,
+               ray_id=ray_id)
+    return _wavefront(wavefront_phase, packed, ox, oy, oz, dx, dy, dz,
+                      ray_id, cfg, schedule)
+
+
+def trace_wavefront_reference(packed: torch.Tensor, ox, oy, oz, dx, dy, dz,
+                              ray_id, cfg: RenderConfig, schedule=(2, 3, 6)):
+    """Plain version of trace_wavefront, on any device: the same schedule
+    and compaction with wavefront_phase_reference for every phase."""
+    return _wavefront(wavefront_phase_reference, packed, ox, oy, oz, dx, dy,
+                      dz, ray_id, cfg, schedule)

@@ -1,34 +1,37 @@
 """Kernel-backed render pipeline (rays1bench_tpu/kernels/pipeline.py): the
-respawn engine, and the topology-emitting one-shot forward of the gradient
-path.
+respawn, one-shot and wavefront render engines, and the topology-emitting
+one-shot forward of the gradient path.
 
 Same contract as render.pipeline.render_image (same RNG lattice per ray id),
 with the whole path in a kernel and the albedo quantized to 8 bits in the
 packed sphere table (megakernel.pack_spheres).
 
 Left out, with the reason: the pixel-tile slot permutation and its
-unpermute (the kernel writes straight into image order); tile_rays, unroll
-and sync_every (Mosaic and VPU tuning knobs with no meaning for a thread per
-pixel); the cull option, since "sort_trim" was the only trim the JAX
-pipeline kept besides "none" (render_image_topology is the cull="none"
-case). render_image_topology feeds the kernel in ray-id order, one thread
-per ray: the slot order, slot_layout, _tile_coords, _slot_of_id,
-sync_every and unroll of the JAX topology path are TPU workarounds. The power-of-two row trim stays: it is
-harmless and keeps the row count, and so the first-wins tie order, equal to
-the JAX side's.
+unpermute (the kernels write straight into image or ray-id order);
+tile_rays, unroll and sync_every (Mosaic and VPU tuning knobs with no
+meaning for a thread per pixel or ray); the cull option, since "sort_trim"
+was the only trim the JAX pipeline kept besides "none"
+(render_image_topology is the cull="none" case). The one-shot, wavefront
+and topology paths feed their kernel in ray-id order, one thread per ray:
+the slot order, slot_layout, _tile_coords, _slot_of_id, sync_every and
+unroll of the JAX paths are TPU workarounds. The power-of-two row trim
+stays: it is harmless and keeps the row count, and so the first-wins tie
+order, equal to the JAX side's.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from rays1bench_tpu_torch.core.config import RenderConfig
 from rays1bench_tpu_torch.kernels import culling
 from rays1bench_tpu_torch.kernels.megakernel import (pack_camera, pack_spheres,
+                                                     trace_oneshot,
                                                      trace_respawn,
-                                                     trace_topology)
+                                                     trace_topology,
+                                                     trace_wavefront)
 from rays1bench_tpu_torch.render.camera import Camera
 from rays1bench_tpu_torch.render.pipeline import primary_rays
 from rays1bench_tpu_torch.scene.soa_spheres import COLUMNS, SphereSOA
@@ -66,21 +69,46 @@ def prepare_trimmed(spheres_soa: SphereSOA,
 
 
 def render_image_megakernel(spheres_soa: SphereSOA, camera: Camera,
-                            cfg: RenderConfig, n_real: Optional[int] = None):
-    """Render a linear-radiance float image through the respawn kernel.
+                            cfg: RenderConfig, n_real: Optional[int] = None,
+                            respawn: bool = True,
+                            wavefront: Optional[Tuple[int, ...]] = None):
+    """Render a linear-radiance float image through a kernel engine: the
+    counterpart of the JAX package's kernels/pipeline.render_image_pallas.
 
-    The counterpart of the JAX package's
-    kernels/pipeline.render_image_pallas(respawn=True); the one-shot and
-    wavefront engines are not ported yet. Runs the CUDA kernel when the
-    scene's tensors are on a CUDA device and its plain version on the CPU.
+    respawn=True: the respawn kernel, one thread per pixel tracing all its
+    samples (megakernel.trace_respawn). respawn=False: the primary rays in
+    ray-id order through the one-shot kernel (megakernel.trace_oneshot),
+    or, with wavefront = bounces per phase such as (2, 3, 6), through the
+    wavefront engine (megakernel.trace_wavefront), whose image and ray count
+    equal the one-shot engine's bit for bit. The one-shot engine's ray count
+    equals the respawn engine's; its image differs only in the order of the
+    sample sum. The default is respawn=True, where the JAX default is the
+    one-shot engine: the port's callers kept their engine when the other two
+    arrived. respawn and wavefront together raise, as in the JAX package.
+    Runs the CUDA kernels when the scene's tensors are on a CUDA device and
+    their plain versions on the CPU.
 
     Returns (image float32[H, W, 3], mean radiance per pixel, row 0 at the
     bottom; num_rays int64 0-dim tensor)."""
+    if respawn and wavefront is not None:
+        raise ValueError("respawn and wavefront are alternative scheduling "
+                         "strategies")
     spheres = prepare_trimmed(spheres_soa, n_real)
-    (rr, rg, rb), _, total = trace_respawn(pack_spheres(spheres),
-                                           pack_camera(camera), cfg)
-    rad = torch.stack([rr, rg, rb], dim=-1).reshape(cfg.height, cfg.width, 3)
-    return rad * (1.0 / cfg.spp), total
+    packed = pack_spheres(spheres)
+    if respawn:
+        (rr, rg, rb), _, total = trace_respawn(packed, pack_camera(camera),
+                                               cfg)
+        rad = torch.stack([rr, rg, rb], dim=-1).reshape(cfg.height,
+                                                        cfg.width, 3)
+        return rad * (1.0 / cfg.spp), total
+    ray_id, x, y = ray_coords(cfg, packed.device)
+    rays = [r.contiguous() for r in primary_rays(camera, cfg, x, y, ray_id)]
+    if wavefront is None:
+        (rr, rg, rb), _, total = trace_oneshot(packed, *rays, ray_id, cfg)
+    else:
+        (rr, rg, rb), _, total = trace_wavefront(packed, *rays, ray_id, cfg,
+                                                 wavefront)
+    return image_of_rays(rr, rg, rb, cfg), total
 
 
 def ray_coords(cfg: RenderConfig, device):

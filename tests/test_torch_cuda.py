@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions: the
-respawn kernel and the topology kernel bit for bit, the fused backward within
-GRAD_TOL of backward_reference (float atomics sum its columns in an order
-that changes from run to run; its adjoint is derived by hand and orders its
-operations otherwise than autograd).
+respawn, topology, one-shot, index and phase kernels bit for bit, the fused
+backward within GRAD_TOL of backward_reference (float atomics sum its
+columns in an order that changes from run to run; its adjoint is derived by
+hand and orders its operations otherwise than autograd).
 
 Needs an NVIDIA GPU and nvcc: every test is marked `cuda` and skips without
 a CUDA device (the kernels have no CPU mode). This file imports no jax, so it
@@ -17,9 +17,11 @@ import torch
 from rays1bench_tpu_torch.core.config import RenderConfig
 from rays1bench_tpu_torch.grad import inverse
 from rays1bench_tpu_torch.grad.mega import render_image_mega
-from rays1bench_tpu_torch.kernels import mega_backward, megakernel
-from rays1bench_tpu_torch.kernels.pipeline import prepare_trimmed, ray_coords
-from rays1bench_tpu_torch.render.pipeline import primary_rays
+from rays1bench_tpu_torch.kernels import (intersect_index, mega_backward,
+                                         megakernel)
+from rays1bench_tpu_torch.kernels.pipeline import (prepare_trimmed, ray_coords,
+                                                   render_image_megakernel)
+from rays1bench_tpu_torch.render.pipeline import primary_rays, render_image
 from rays1bench_tpu_torch.scene import builders
 from rays1bench_tpu_torch.scene.soa_spheres import SphereSOABuilder
 from rays1bench_tpu_torch.scene.spheres import prepare
@@ -181,3 +183,115 @@ def test_backward_refuses_what_the_kernel_cannot_take(cuda):
                       dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="bounces"):
         mega_backward.backward(prep, *rays, ray_id, ct, ct, ct, topo, deep)
+
+
+def test_oneshot_kernel_equals_topology_kernel(cuda):
+    """trace_oneshot (no topology planes) gives the topology kernel's
+    radiance and counts."""
+    cfg, _, prep, rays, ray_id = grad_inputs("small", 50, 30, 3, 6, 8, cuda)
+    packed = megakernel.pack_spheres(prep)
+    before = megakernel.ONESHOT_LAUNCHES
+    rad, cnt, total = megakernel.trace_oneshot(packed, *rays, ray_id, cfg)
+    ref_rad, ref_cnt, ref_total, _ = megakernel.trace_topology(
+        packed, *rays, ray_id, cfg)
+    torch.cuda.synchronize()
+    assert megakernel.ONESHOT_LAUNCHES == before + 2
+    assert torch.equal(cnt, ref_cnt) and int(total) == int(ref_total)
+    assert all(torch.equal(a, b) for a, b in zip(rad, ref_rad))
+
+
+@pytest.mark.parametrize("scene,pad,n", [("small", 8, 777),
+                                         ("large", 128, 20_000),
+                                         ("giant", 128, 3_001)])
+def test_index_kernel_equals_plain_version(cuda, scene, pad, n):
+    """Random rays, some with zero directions; the giant table (65,536 B)
+    needs the shared-memory opt-in."""
+    soa = builders.SCENES[scene](16 / 9, pad_multiple=pad, device=cuda).spheres
+    prep = prepare(soa)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    o = (torch.rand((3, n), generator=g, device=cuda) * 2 - 1) * 6
+    o[1] = o[1].abs() + 0.2
+    d = torch.randn((3, n), generator=g, device=cuda)
+    d = d / d.norm(dim=0)
+    d[:, ::50] = 0.0
+    before = intersect_index.LAUNCHES
+    idx, hit = intersect_index.closest_hit_index(prep, *o, *d, 1e-3)
+    torch.cuda.synchronize()
+    assert intersect_index.LAUNCHES == before + 1
+    ref_idx, ref_hit = intersect_index.closest_hit_index_reference(
+        intersect_index.pack(prep), *o, *d, 1e-3)
+    assert torch.equal(idx, ref_idx) and torch.equal(hit, ref_hit)
+    assert 0 < int(hit.sum()) < n
+
+
+@pytest.mark.parametrize("mb,schedule", [(6, (2, 5)), (3, (2, 3, 6)),
+                                         (6, (1,)), (4, (4, 7))])
+def test_phase_kernel_equals_plain_version(cuda, mb, schedule):
+    """Each phase from the same state, kernel and plain version, equal bit
+    for bit; the whole wavefront trace equals the one-shot kernel's."""
+    cfg, _, prep, rays, ray_id = grad_inputs("small", 40, 24, 4, mb, 8, cuda)
+    packed = megakernel.pack_spheres(prep)
+    state, alive, cnt = megakernel.wavefront_state(*rays, ray_id, cfg)
+    before = megakernel.PHASE_LAUNCHES
+    spans = megakernel.wavefront_spans(schedule, mb)
+    for k, (b0, bend) in enumerate(spans):
+        slots = alive.nonzero()[:, 0].to(torch.int32) if k else None
+        ref = [t.clone() for t in (state, alive, cnt)]
+        megakernel.wavefront_phase_reference(packed, *ref[:2], ray_id,
+                                             ref[2], slots, b0, bend, cfg)
+        megakernel.wavefront_phase(packed, state, alive, ray_id, cnt, slots,
+                                   b0, bend, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(state, ref[0]) and torch.equal(alive, ref[1])
+        assert torch.equal(cnt, ref[2])
+    assert megakernel.PHASE_LAUNCHES - before == len(spans)
+    rad, w_cnt, total = megakernel.trace_wavefront(packed, *rays, ray_id, cfg,
+                                                   schedule)
+    o_rad, o_cnt, o_total = megakernel.trace_oneshot(packed, *rays, ray_id,
+                                                     cfg)
+    assert torch.equal(w_cnt, o_cnt) and int(total) == int(o_total)
+    assert all(torch.equal(a, b) for a, b in zip(rad, o_rad))
+
+
+def test_render_engines_agree_on_the_card(cuda):
+    cfg = RenderConfig(width=48, height=32, spp=4, max_bounces=8)
+    scene = builders.create_small_scene(cfg.aspect)
+    camera = scene.camera.build()
+    one, n_one = render_image_megakernel(scene.spheres, camera, cfg,
+                                         scene.n_real, respawn=False)
+    wave, n_wave = render_image_megakernel(scene.spheres, camera, cfg,
+                                           scene.n_real, respawn=False,
+                                           wavefront=(2, 3, 6))
+    resp, n_resp = render_image_megakernel(scene.spheres, camera, cfg,
+                                           scene.n_real)
+    assert torch.equal(one, wave) and int(n_one) == int(n_wave)
+    assert int(n_one) == int(n_resp)
+    assert float((one - resp).abs().max()) <= 1e-5
+
+
+def test_pipeline_gradient_same_with_index_kernel(cuda):
+    """engine="pipeline": the index kernel or the plain sweep as the
+    pipeline's intersector give the same image and gradients bit for bit;
+    the forward launches the index kernel once a bounce, the backward
+    never."""
+    cfg = RenderConfig(width=48, height=32, spp=2, max_bounces=5,
+                       early_exit=False, ray_chunk=1024)
+    scene = builders.create_medium_scene(cfg.aspect, pad_multiple=8)
+    camera = scene.camera.build()
+    out = []
+    for pallas in (False, True):
+        params = inverse.params_of(scene.spheres, ("center_x", "radius",
+                                                   "albedo_y"))
+        before = intersect_index.LAUNCHES
+        img, n = render_image(inverse.with_params(scene.spheres, params),
+                              camera, cfg.replace(pallas_intersect=pallas))
+        forward = intersect_index.LAUNCHES - before
+        torch.mean((img - 0.3) ** 2).backward()
+        assert intersect_index.LAUNCHES - before == forward
+        out.append((img, int(n), forward,
+                    {k: v.grad for k, v in params.items()}))
+    chunks = -(-cfg.num_primary_rays // cfg.ray_chunk)
+    assert out[0][2] == 0 and out[1][2] == chunks * (cfg.max_bounces + 1)
+    assert torch.equal(out[0][0], out[1][0]) and out[0][1] == out[1][1]
+    for k, g in out[0][3].items():
+        assert torch.equal(g, out[1][3][k]), k

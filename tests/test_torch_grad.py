@@ -2,7 +2,8 @@
 JAX package's on the CPU: render_image_mega's value and gradients, three
 steps of the Adam fit, and a fit carried across through a JAX checkpoint.
 Also: the entry points run on the card unless the caller asks for the CPU,
-and the unported modes raise.
+the unported modes raise, and engine="pipeline" and auto's route to it
+work (tests/test_torch_pipeline_grad.py holds that engine to JAX).
 
 JAX's Pallas kernels run in interpret mode (fused=True, interpret=True), as
 tests/test_grad.py runs them. Scene and camera leaves go across as numpy
@@ -40,6 +41,7 @@ from rays1bench_tpu_torch.grad import checkpoint as ckpt
 from rays1bench_tpu_torch.grad import inverse
 from rays1bench_tpu_torch.grad.mega import render_image_mega
 from rays1bench_tpu_torch.render.camera import Camera, CameraSpec
+from rays1bench_tpu_torch.render.pipeline import render_image
 from rays1bench_tpu_torch.scene import builders as tbuilders
 from rays1bench_tpu_torch.scene import convert
 from rays1bench_tpu_torch.scene.soa_spheres import COLUMNS, SphereSOABuilder
@@ -307,18 +309,30 @@ def test_entry_points_run_on_the_card_unless_asked():
 
 
 def test_unported_modes_raise_with_their_roadmap_item():
+    """A mesh, fit_camera and soft silhouettes raise. engine="pipeline" is
+    ported: it renders the plain pipeline with the index sweep. A scene
+    the fused backward cannot take (51 bounces) now goes to the pipeline
+    under auto; an explicit "mega" still raises there."""
     cfg = RenderConfig(width=8, height=4, spp=1, max_bounces=2)
     scene = tbuilders.create_small_scene(2.0, pad_multiple=8, device="cpu")
     cam = scene.camera.build("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inverse.render_for_loss(scene.spheres, cam, cfg, engine="pipeline")
+    want, _ = render_image(scene.spheres, cam,
+                           cfg.replace(early_exit=False,
+                                       pallas_intersect=True))
+    img = inverse.render_for_loss(scene.spheres, cam, cfg, engine="pipeline")
+    assert torch.equal(img, want)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         inverse.render_for_loss(scene.spheres, cam, cfg, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         inverse.fit_camera(scene.spheres, scene.camera, None, cfg)
+    deep = cfg.replace(max_bounces=51)
+    want, _ = render_image(scene.spheres, cam,
+                           deep.replace(early_exit=False,
+                                        pallas_intersect=True))
+    assert torch.equal(inverse.render_for_loss(scene.spheres, cam, deep),
+                       want)
     with pytest.raises(ValueError, match="supported"):
-        inverse.render_for_loss(scene.spheres, cam,
-                                cfg.replace(max_bounces=51))
+        inverse.render_for_loss(scene.spheres, cam, deep, engine="mega")
     with pytest.raises(ValueError, match="soft"):
         cfg.replace(soft_silhouette=0.01)
 
