@@ -77,6 +77,29 @@
    results on the first chunk (131,072 rays) of the first forward are kept
    for every bounce, 0 to 10, and held against its plain version, bit for
    bit: after bounce 0 the rays start on sphere surfaces, near t_min.
+16. The soft-silhouette mode of both gradient kernels (soft_silhouette
+   0.005) against their plain versions on the card: small 64x32 @ 2 spp @
+   4 b (hollow glass) and 50x30 (ragged), medium 160x90 @ 4 spp @ 10 b
+   (48 rows). The topology kernel's topology, counts and radiance equal bit
+   for bit, with promoted lanes and pass-through draws > 0; the fused
+   backward within GRAD_TOL of backward_reference on every column but the
+   raw inv_radius one (rounding noise in soft mode: the normal is
+   renormalized, so its exact derivative is 0), on the ray planes, and on
+   the scene's own columns chained through scene/spheres.prepare.
+17. Drives the soft path: the full-resolution geometry fit
+   (tools/fullres_fit_probe.py:55-75), fit_scene(engine="mega") on the
+   small scene at 1280x720 @ 4 spp @ 10 b, seed 3, row 0 moved by center_x
+   +0.06, center_y -0.04, radius -0.03, 150 Adam steps at lr 2e-3 on
+   center_x, center_y and radius, the target the unmoved scene's soft
+   render. Each step renders twice (the U-statistic loss), so each kernel
+   must launch 300 times; each of the three errors of row 0 must end below
+   30% of its start (tools/fullres_fit_probe.py:116).
+18. Both soft kernels against their plain versions on that fit's whole
+   frame, 3,686,400 rays (the plain versions in chunks of rays), as in 16,
+   and on ~4k of its rays launched as their own list, as in 9.
+19. Soft step timings through bench.grad.run (--soft): the small
+   full-resolution recipe and the medium stage-2 recipe
+   (tools/medium_fit_probe.py:64-102), phases and kernels alone.
 Then prints one JSON line of per-kernel results and, last, the device line.
 Each kernel's launches there are those of the main paths that run it: the
 respawn kernel's the headline's; the one-shot kernel's both fits, the
@@ -85,8 +108,10 @@ and the giant step; the phase kernel's the wavefront frame. Times and
 bounds: the gradient kernels' on the medium frame, the index kernel's on
 one chunk of the medium fit (131,072 rays), the phase kernel's summed over
 the phases of the wavefront frame; max_abs_err is the worst of every
-comparison. Any failure
-raises and exits non-zero before the last line.
+comparison. The soft modes of the one-shot and backward kernels have
+entries of their own: launches those of the soft fit, times and bounds on
+its whole frame. Any failure raises and exits non-zero before the last
+line.
 
 Bounds: a kernel's bound is the larger of its bytes (each input read once,
 each output written once) over HBM_BYTES_PER_S and its FP32 operations over
@@ -95,10 +120,15 @@ multiply is one instruction: the card's 67 TFLOP/s FP32 peak counts a fused
 multiply-add as two operations, and a stream of plain adds and multiplies
 peaks at half of it. Operations are counted from this run's data: a sweep
 costs SWEEP_OPS per sphere row and traced ray, a replayed bounce of the
-backward BACKWARD_OPS per live bounce.
+backward BACKWARD_OPS per live bounce. The soft one-shot kernel adds the
+graze sweep: GRAZE_OPS per row and traced ray, and for the square roots
+this run's rays take (counted by the plain version) HARD_ROOT_OPS per root
+of the hard sweep and GRAZE_ROOT_OPS per root of the graze sweep. The soft
+backward costs SOFT_BACKWARD_OPS per live bounce.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -109,8 +139,11 @@ import time
 import numpy as np
 import torch
 
-from rays1bench_tpu_torch.bench.grad import (ALBEDOS, cuda_ms, kernel_ms,
-                                             launch_ms, perturb_albedos)
+from rays1bench_tpu_torch.bench import grad as bench_grad
+from rays1bench_tpu_torch.bench.grad import (ALBEDOS, GEOMETRY, cuda_ms,
+                                             geometry_config, kernel_ms,
+                                             launch_ms, moved_geometry,
+                                             perturb_albedos, phase_ms)
 from rays1bench_tpu_torch.bench import cli
 from rays1bench_tpu_torch.bench.harness import benchmark_sustained
 from rays1bench_tpu_torch.core.config import RenderConfig, get_config
@@ -127,6 +160,7 @@ from rays1bench_tpu_torch.kernels.pipeline import (image_of_rays,
 from rays1bench_tpu_torch.render.pipeline import (primary_rays, render_image,
                                                   to_srgb_u8)
 from rays1bench_tpu_torch.scene import builders, tga
+from rays1bench_tpu_torch.scene.soa_spheres import COLUMNS
 from rays1bench_tpu_torch.scene.spheres import prepare
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -192,6 +226,31 @@ PHASE_CASES = [  # (name, scene, width, height, spp, max_bounces, schedules)
 # Bytes a listed ray moves through one phase: 12 state floats in and out,
 # its id, slot and alive flag in, alive out, its count in and out.
 PHASE_RAY_BYTES = 12 * 4 * 2 + 4 + 4 + 1 + 1 + 4 * 2
+# The soft one-shot kernel's graze sweep, counted from path_math.cuh: per
+# row and traced ray co = c - o and nb = co.d (3 FADD, 3 FMUL, 2 FADD); per
+# row passing its cheap tests |co|^2, |co|^2 - nb^2 and the edge (3 FMUL,
+# 2 FADD, 1 FMUL, 1 FADD, 1 FADD) and the root; per root of the hard sweep
+# the root and the two candidate t (2 FADD). A root counts as one
+# operation.
+GRAZE_OPS = 8
+GRAZE_ROOT_OPS = 9
+HARD_ROOT_OPS = 3
+# The soft replayed bounce over BACKWARD_OPS, counted by hand from
+# path_adjoint.cuh: the forward's renormalized normal, edge, cover, far
+# exit and branch weights (~30 FP32 operations; the sigmoid's float64 exp
+# not counted) and the reverse's normalize3 adjoint and cover chain (~35).
+SOFT_BACKWARD_OPS = BACKWARD_OPS + 65
+SOFT = 0.005
+SOFT_CASES = [  # (name, scene, width, height, spp, max_bounces, pad)
+    ("small 64x32 @ 2 spp @ 4 b (hollow glass)", "small", 64, 32, 2, 4, 8),
+    ("small 50x30 @ 2 spp @ 4 b (ragged)", "small", 50, 30, 2, 4, 8),
+    ("medium 160x90 @ 4 spp @ 10 b (48 rows)", "medium", 160, 90, 4, 10, 8),
+]
+SOFT_FIT = dict(width=1280, height=720, spp=4, max_bounces=10,
+                seed=GEOMETRY["small"][0], early_exit=False,
+                soft_silhouette=SOFT)
+SOFT_FIT_STEPS = 150
+RECOVERY = 0.3                 # tools/fullres_fit_probe.py:116
 INDEX_CHUNK = 131072           # RenderConfig.ray_chunk, the pipeline's chunk
 INDEX_PLAIN_CHUNK = 65536      # (65,536 x 4,096) float temporaries: ~1 GB each
 
@@ -377,21 +436,25 @@ def grad_gap(label, k, p, n_real):
     return rel, err
 
 
-def grad_case(label, scene_name, w, h, spp, mb, pad):
-    """Both gradient kernels against their plain versions on the card;
-    returns (topology radiance gap, backward max abs gap)."""
+def grad_case(label, scene_name, w, h, spp, mb, pad, soft=0.0):
+    """Both gradient kernels against their plain versions on the card, in
+    the soft-silhouette mode when soft > 0; returns (topology radiance gap,
+    backward max abs gap)."""
     cfg = RenderConfig(width=w, height=h, spp=spp, max_bounces=mb,
-                       seed=FIT_SEED, early_exit=False)
+                       seed=FIT_SEED, early_exit=False, soft_silhouette=soft)
     scene, prep, rays, ray_id = grad_inputs(scene_name, cfg, pad)
     packed = megakernel.pack_spheres(prep)
     fwd = lambda: megakernel.trace_topology(packed, *rays, ray_id, cfg)
     fwd()
     (k_rad, k_cnt, k_total, topo), a_ms, _, _ = launch_ms(fwd)
+    stats = {}
     plain, a_plain_ms = cuda_ms(lambda: megakernel.trace_topology_reference(
-        packed, *rays, ray_id, cfg))
+        packed, *rays, ray_id, cfg, stats=stats))
     a_err = topology_gap(label, (k_rad, k_cnt, topo), plain)
     if int(k_total) != int(k_cnt.sum(dtype=torch.int64)):
         raise AssertionError(f"{label}: topology kernel ray total differs")
+    if soft:
+        soft_counts(label, stats)
     cts = random_cts(ray_id.numel(), 1)
     bwd = lambda: mega_backward.backward(prep, *rays, ray_id, *cts, topo,
                                          cfg)
@@ -399,12 +462,12 @@ def grad_case(label, scene_name, w, h, spp, mb, pad):
     k, b_ms, _, _ = launch_ms(bwd)
     p, b_plain_ms = cuda_ms(lambda: mega_backward.backward_reference(
         prep, *rays, ray_id, *cts, topo, cfg))
-    rel, b_err = grad_gap(label, k, p, scene.n_real)
-    print(f"[grad] {label}: {prep.count} rows, {int(k_total)} rays | "
-          f"topology kernel {a_ms:.3f} ms, plain {a_plain_ms:.1f} ms: "
-          f"topology, counts and radiance equal | fused backward "
-          f"{b_ms:.3f} ms, plain {b_plain_ms:.1f} ms: worst relative gap "
-          f"{rel:.2e}, max abs gap {b_err:.2e}", flush=True)
+    rel, b_err = gradient_gap(label, k, p, scene.spheres, scene.n_real, soft)
+    print(f"[grad] {label}{f', soft {soft}' if soft else ''}: {prep.count} "
+          f"rows, {int(k_total)} rays | topology kernel {a_ms:.3f} ms, plain "
+          f"{a_plain_ms:.1f} ms: topology, counts and radiance equal | fused "
+          f"backward {b_ms:.3f} ms, plain {b_plain_ms:.1f} ms: worst "
+          f"relative gap {rel:.2e}, max abs gap {b_err:.2e}", flush=True)
     return a_err, b_err
 
 
@@ -494,9 +557,12 @@ def plain_chunked(fn, n, *per_ray):
 def full_width(name, fitted, camera, cfg, n_real):
     """The gradient kernels at the fit's shape, against their plain versions
     over the whole frame (in chunks of rays) and on ~4k rays launched as
-    their own list. Returns per-kernel (max abs gap, ms, plain ms, bound)."""
+    their own list, in the soft mode when cfg has it. Returns per-kernel
+    (max abs gap, ms, plain ms, bound)."""
+    soft = cfg.soft_silhouette
     label = (f"{name} ({fitted.count} rows) {cfg.width}x{cfg.height} @ "
-             f"{cfg.spp} spp @ {cfg.max_bounces} b")
+             f"{cfg.spp} spp @ {cfg.max_bounces} b"
+             + (f", soft {soft}" if soft else ""))
     prep = prepare(fitted)
     ray_id, x, y = ray_coords(cfg, "cuda")
     rays = [r.contiguous() for r in primary_rays(camera, cfg, x, y, ray_id)]
@@ -506,14 +572,18 @@ def full_width(name, fitted, camera, cfg, n_real):
     fwd = lambda: megakernel.trace_topology(packed, *rays, ray_id, cfg)
     fwd()
     (k_rad, k_cnt, k_total, topo), a_ms, _, _ = launch_ms(fwd)
+    stats = {}
     parts, a_plain_ms = cuda_ms(lambda: plain_chunked(
-        lambda *t: megakernel.trace_topology_reference(packed, *t, cfg), n,
+        lambda *t: megakernel.trace_topology_reference(packed, *t, cfg,
+                                                       stats=stats), n,
         *rays, ray_id))
     plain = (tuple(torch.cat([q[0][c] for q in parts]) for c in range(3)),
              torch.cat([q[1] for q in parts]),
              torch.cat([q[2] for q in parts], dim=1))
     a_err = topology_gap(label, (k_rad, k_cnt, topo), plain)
     rays_traced = int(k_total)
+    if soft:
+        soft_counts(label, stats)
 
     cts = random_cts(n, 2)
     bwd = lambda: mega_backward.backward(prep, *rays, ray_id, *cts, topo, cfg)
@@ -525,12 +595,23 @@ def full_width(name, fitted, camera, cfg, n_real):
         *rays, ray_id, *cts, topo))
     p_grads = sum(q[0] for q in parts)
     p_cts = [torch.cat([q[1][c] for q in parts]) for c in range(6)]
-    rel, b_err = grad_gap(label, (k_grads, k_cts), (p_grads, p_cts), n_real)
-    print(f"[full] {label}: {n} rays, {rays_traced} traced | topology "
-          f"kernel {a_ms:.3f} ms, plain {a_plain_ms:.1f} ms (chunks of "
-          f"{PLAIN_CHUNK}): equal | fused backward {b_ms:.3f} ms, plain "
-          f"{b_plain_ms:.1f} ms: worst relative gap {rel:.2e}, max abs gap "
-          f"{b_err:.2e}", flush=True)
+    rel, b_err = gradient_gap(label, (k_grads, k_cts), (p_grads, p_cts),
+                              fitted, n_real, soft)
+    if soft:
+        a_bound = soft_oneshot_bound(n, s_count, mb, rays_traced, stats)
+        b_bound = soft_backward_bound(n, s_count, mb, rays_traced)
+    else:
+        a_bound = oneshot_bound(n, s_count, mb, rays_traced)
+        b_bound = backward_bound(n, s_count, mb, rays_traced)
+    print(f"[full] {label}: {n} rays, {rays_traced} traced"
+          + (f", roots hard {stats['hard_roots']} graze "
+             f"{stats['graze_roots']}" if soft else "")
+          + f" | topology kernel {a_ms:.3f} ms (bound {a_bound[0]:.4f} ms, "
+          f"{a_bound[1]}), plain {a_plain_ms:.1f} ms (chunks of "
+          f"{PLAIN_CHUNK}): equal | fused backward {b_ms:.3f} ms (bound "
+          f"{b_bound[0]:.4f} ms, {b_bound[1]}), plain {b_plain_ms:.1f} ms: "
+          f"worst relative gap {rel:.2e}, max abs gap {b_err:.2e}",
+          flush=True)
 
     idx = subset_rays(cfg)
     sub = [r[idx].contiguous() for r in rays]
@@ -552,18 +633,165 @@ def full_width(name, fitted, camera, cfg, n_real):
         raise AssertionError(f"{label}: {n_diff} ray cotangents of the "
                              f"{idx.numel()}-ray launch differ from the "
                              f"frame's")
-    s_rel, _ = grad_gap(f"{label}, {idx.numel()} rays",
-                        (s_grads, s_ray_cts),
-                        mega_backward.backward_reference(
-                            prep, *sub, sub_id, *s_cts, s_topo, cfg), n_real)
+    s_rel, _ = gradient_gap(f"{label}, {idx.numel()} rays",
+                            (s_grads, s_ray_cts),
+                            mega_backward.backward_reference(
+                                prep, *sub, sub_id, *s_cts, s_topo, cfg),
+                            fitted, n_real, soft)
     print(f"[full] {label}, {idx.numel()} rays launched alone: topology, "
           f"counts, radiance and ray cotangents equal to the frame's launch "
           f"bit for bit; against the plain versions topology equal, "
           f"backward worst relative gap {s_rel:.2e}", flush=True)
-    return ((a_err, a_ms, a_plain_ms,
-             oneshot_bound(n, s_count, mb, rays_traced)),
-            (b_err, b_ms, b_plain_ms,
-             backward_bound(n, s_count, mb, rays_traced)))
+    return ((a_err, a_ms, a_plain_ms, a_bound),
+            (b_err, b_ms, b_plain_ms, b_bound))
+
+
+def soft_oneshot_bound(n, s_count, mb, rays, stats):
+    """oneshot_bound's bytes; the hard sweep's SWEEP_OPS and the graze
+    sweep's GRAZE_OPS per row and traced ray, and the roots this run took
+    (stats of trace_topology_reference)."""
+    return bound_ms(4 * (7 * s_count + n * (7 + 4 + mb + 1)),
+                    rays * s_count * (SWEEP_OPS + GRAZE_OPS)
+                    + stats["hard_roots"] * HARD_ROOT_OPS
+                    + stats["graze_roots"] * GRAZE_ROOT_OPS)
+
+
+def soft_backward_bound(n, s_count, mb, live):
+    return bound_ms(4 * (21 * s_count + n * (10 + mb + 1 + 6)),
+                    live * SOFT_BACKWARD_OPS)
+
+
+def soa_grads(soa, grads):
+    """GRAD_ROWS cotangents chained onto the scene's float columns through
+    scene/spheres.prepare (what a fit's parameters receive)."""
+    floats = [c for c in COLUMNS if c != "mat_type"]
+    soa = dataclasses.replace(soa, **{
+        c: getattr(soa, c).detach().clone().requires_grad_(True)
+        for c in floats})
+    prep = prepare(soa)
+    torch.autograd.backward(
+        [getattr(prep, n) for n in mega_backward.GRAD_ROWS], list(grads))
+    return [getattr(soa, c).grad for c in floats]
+
+
+def soft_grad_gap(label, k, p, soa, n_real):
+    """grad_gap for the soft mode: every column but the raw inv_radius one
+    (rounding noise there: the soft normal is renormalized, so its exact
+    derivative is 0), the ray planes, and the scene's own columns chained
+    through prepare, within GRAD_TOL. Prints the inv_radius column's gap;
+    returns (worst relative gap, max abs gap)."""
+    noise = mega_backward.GRAD_ROWS.index("inv_radius")
+    keep = [r for r in range(mega_backward.NUM_GRAD) if r != noise]
+    out = grad_gap(label, (k[0][keep], list(k[1]) + soa_grads(soa, k[0])),
+                   (p[0][keep], list(p[1]) + soa_grads(soa, p[0])), n_real)
+    if k[0].shape[1] > n_real and float(k[0][:, n_real:].abs().max()) != 0:
+        raise AssertionError(f"{label}: placeholder rows got a gradient")
+    ivr = float((k[0][noise] - p[0][noise]).abs().max()
+                / p[0][noise].abs().max().clamp_min(1e-30))
+    print(f"[soft] {label}: raw inv_radius column relative gap {ivr:.2e} "
+          f"(not checked)", flush=True)
+    return out
+
+
+def gradient_gap(label, k, p, soa, n_real, soft):
+    if soft:
+        return soft_grad_gap(label, k, p, soa, n_real)
+    return grad_gap(label, k, p, n_real)
+
+
+def soft_counts(label, stats):
+    print(f"[soft] {label}: promoted lanes {stats['promoted']}, pass-through "
+          f"draws {stats['pass_through']} (live lanes, plain version, equal "
+          f"to the kernel's run)", flush=True)
+    if not (stats["promoted"] > 0 and stats["pass_through"] > 0):
+        raise AssertionError(f"{label}: no promoted lane or no pass-through "
+                             f"draw: {stats}")
+
+
+def soft_fit():
+    """The soft path: the full-resolution geometry fit through
+    fit_scene(engine="mega"). Returns (scene, camera, cfg, fitted spheres,
+    (topology launches, backward launches), ms a step)."""
+    cfg = RenderConfig(**SOFT_FIT)
+    scene = builders.SCENES["small"](cfg.aspect, pad_multiple=8,
+                                     device="cuda")
+    camera = scene.camera.build("cuda")
+    with torch.no_grad():
+        target = render_for_loss(scene.spheres, camera, cfg, engine="mega")
+    start = moved_geometry(scene.spheres, "small")
+    inv = geometry_config("small", SOFT_FIT_STEPS)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted, losses = fit_scene(start, camera, target, cfg, inv,
+                               engine="mega")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (megakernel.ONESHOT_LAUNCHES, mega_backward.LAUNCHES)
+    label = (f"small ({scene.spheres.count} rows) {cfg.width}x{cfg.height} "
+             f"@ {cfg.spp} spp @ {cfg.max_bounces} b, soft {SOFT}, seed "
+             f"{cfg.seed}")
+    step_ms = wall * 1e3 / SOFT_FIT_STEPS
+    shown = ", ".join(f"{i}: {losses[i]:.4e}"
+                      for i in list(range(0, SOFT_FIT_STEPS, 15))
+                      + [SOFT_FIT_STEPS - 1])
+    print(f"[softfit] {label}: {SOFT_FIT_STEPS} Adam steps (lr "
+          f"{inv.learning_rate}) in {wall:.2f} s wall ({step_ms:.2f} ms a "
+          f"step, first-call set-up included); launches topology "
+          f"{launches[0]} backward {launches[1]}; losses {shown}",
+          flush=True)
+    fracs = {}
+    for c, by_row in GEOMETRY["small"][1].items():
+        err = abs(float(getattr(fitted, c)[0]) -
+                  float(getattr(scene.spheres, c)[0]))
+        fracs[c] = err / abs(by_row[0])
+    print(f"[softfit] residual fraction of row 0's initial error: "
+          f"{', '.join(f'{c} {f:.4f}' for c, f in fracs.items())} (limit "
+          f"{RECOVERY})", flush=True)
+    if launches != (2 * SOFT_FIT_STEPS, 2 * SOFT_FIT_STEPS):
+        raise AssertionError(f"{label}: launches {launches}, expected two "
+                             f"of each kernel a step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite loss")
+    if not all(f < RECOVERY for f in fracs.values()):
+        raise AssertionError(f"{label}: geometry not recovered: {fracs}")
+    step, _ = make_train_step(fitted, camera, cfg, inv,
+                              params_of(fitted, inv.optimize), engine="mega")
+    step(target)
+    phases = phase_ms(step, target)
+    _, warm = cuda_ms(lambda: [step(target) for _ in range(5)])
+    print(f"[softfit] warm step {warm / 5:.2f} ms (CUDA events, 5 steps); "
+          f"one step's phases "
+          f"{', '.join(f'{k} {v:.2f}' for k, v in phases.items())} ms",
+          flush=True)
+    return scene, camera, cfg, fitted, launches, step_ms
+
+
+def soft_timings():
+    """bench.grad.run with --soft on the small full-resolution recipe and
+    the medium stage-2 recipe (band 0.005 * 1280 / width), with the
+    kernels' bounds; kernel A's counts the sweeps' per-row operations but
+    not the roots, which this path does not count."""
+    for scene_name in ("small", "medium"):
+        cfg = RenderConfig(width=1280, height=720, spp=4,
+                           max_bounces=bench_grad.MAX_BOUNCES,
+                           early_exit=False, seed=GEOMETRY[scene_name][0],
+                           soft_silhouette=SOFT)
+        out = bench_grad.run(scene_name, cfg, steps=8)
+        prof = out["profiled_steps"] or {}
+        n, rows, rays = cfg.num_primary_rays, out["rows"], out["rays_per_step"]
+        a_bound = bound_ms(4 * (7 * rows + n * (7 + 4 + cfg.max_bounces + 1)),
+                           rays * rows * (SWEEP_OPS + GRAZE_OPS))
+        b_bound = soft_backward_bound(n, rows, cfg.max_bounces, rays)
+        print(f"[softbench] {scene_name} ({rows} rows) geometry recipe, soft "
+              f"{SOFT}: {out['s_per_step'] * 1e3:.2f} ms a step; phases "
+              f"{', '.join(f'{k} {v:.2f}' for k, v in out['phase_ms'].items())}"
+              f" ms; kernels alone {json.dumps(out['kernel_ms'])} ms, bounds "
+              f"A {a_bound[0]:.4f} ms ({a_bound[1]}), B {b_bound[0]:.4f} ms "
+              f"({b_bound[1]}) ({rays} rays a render); loss "
+              f"{out['loss_first']:.4e} -> {out['loss_last']:.4e}; idle "
+              f"share {prof.get('idle_share')}", flush=True)
+        print(f"[softbench] {json.dumps(out)}", flush=True)
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound):
@@ -1178,6 +1406,13 @@ def main():
     print(f"[mem] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
+    soft_errs = [grad_case(*case, soft=SOFT) for case in SOFT_CASES]
+    scene, camera, cfg, fitted, soft_launches, _ = soft_fit()
+    a_soft, b_soft = full_width("small", fitted, camera, cfg, scene.n_real)
+    a_soft = (max([e[0] for e in soft_errs] + [a_soft[0]]),) + a_soft[1:]
+    b_soft = (max([e[1] for e in soft_errs] + [b_soft[0]]),) + b_soft[1:]
+    soft_timings()
+
     index = index_checks()
     phase_err = max(phase_case(*case) for case in PHASE_CASES)
     *engine_launches, one_err, phase = engines_full()
@@ -1202,6 +1437,12 @@ def main():
         kernel_entry("mega_backward", "mega_backward.cu",
                      "rays1bench_tpu/kernels/mega_backward.py:227",
                      grad_launches[1], b_err, *b_full[1:]),
+        kernel_entry("oneshot_soft", "oneshot.cu",
+                     "rays1bench_tpu/kernels/megakernel.py:487",
+                     soft_launches[0], *a_soft),
+        kernel_entry("mega_backward_soft", "mega_backward.cu",
+                     "rays1bench_tpu/kernels/mega_backward.py:227",
+                     soft_launches[1], *b_soft),
         kernel_entry("intersect_index", "intersect_index.cu",
                      "rays1bench_tpu/kernels/intersect_pallas.py:34",
                      index_launches, *index),

@@ -1,7 +1,7 @@
 """Sustained gradient steps on one CUDA GPU (the port's tools/grad_bench.py).
 
     python -m rays1bench_tpu_torch.bench.grad --scene medium
-        [--engine mega|pipeline] [--steps N]
+        [--engine mega|pipeline] [--steps N] [--soft EPS]
 
 One step is grad.inverse.make_train_step's: raygen, the topology kernel
 forward, the loss, the fused backward kernel with autograd's chain onto the
@@ -14,6 +14,18 @@ perturbation of perturb_albedos back to the scene's own render, so the loss
 is non-zero and falls and the geometry, and with it the rays traced a step,
 stays fixed. (tools/grad_bench.py fits its default columns from the
 unperturbed scene, at loss 0.) max_bounces is 10, as in tools/grad_bench.py.
+
+--soft EPS (> 0) takes the geometry recipe through the soft-silhouette
+renderer at cfg.soft_silhouette = EPS, whose step renders twice for the
+U-statistic loss (two launches of each kernel): on the small scene the
+full-resolution geometry fit (tools/fullres_fit_probe.py:55-75: seed 3,
+row 0 moved by center_x +0.06, center_y -0.04, radius -0.03; center_x,
+center_y and radius of every row, lr 2e-3); on the medium scene the second
+stage of tools/medium_fit_probe.py:64-102 (seed 5, center_x of row 1 +0.05
+and center_y of row 2 +0.04; the centers of rows 1 and 2, lr 2e-3; the
+probe's band is 0.005 * 1280 / width). The albedos start true, where the
+probe's stage 2 starts from its stage-1 fit. The target is the unmoved
+scene's soft render through the same engine.
 After WARMUP untimed steps, --steps steps run back to back between two CUDA
 events. Then, each measured once more:
   - one step split at its phase boundaries by CUDA events that the step
@@ -56,14 +68,22 @@ from rays1bench_tpu_torch.render.pipeline import primary_rays
 from rays1bench_tpu_torch.scene import builders
 from rays1bench_tpu_torch.scene.spheres import prepare
 
-# The port's kernels by the name of their __global__ function; a device
-# event is a kernel's when its name holds "::<function>(" (torch's own
-# kernels, such as indexing_backward_kernel, do not match).
+# The port's kernels by the name of their __global__ function (is_kernel).
 KERNELS = {"oneshot": "oneshot_kernel", "mega_backward": "backward_kernel",
            "intersect_index": "index_kernel"}
 TOP_KERNELS = 5
 PROFILED_STEPS = {"mega": 3, "pipeline": 1}
 ALBEDOS = ("albedo_x", "albedo_y", "albedo_z")
+# The geometry recipes of --soft: (seed, {column: {row: offset}}, optimized
+# columns, rows or None for all).
+GEOMETRY = {
+    "small": (3, {"center_x": {0: 0.06}, "center_y": {0: -0.04},
+                  "radius": {0: -0.03}},
+              ("center_x", "center_y", "radius"), None),
+    "medium": (5, {"center_x": {1: 0.05}, "center_y": {2: 0.04}},
+               ("center_x", "center_y"), (1, 2)),
+}
+GEOMETRY_LR = 2e-3
 MAX_BOUNCES = 10
 WARMUP = 2
 # Device-side wait ahead of a timed launch: 2e7 cycles, ~10 ms at the H100's
@@ -80,6 +100,32 @@ def perturb_albedos(soa, n_real):
     return dataclasses.replace(soa, **{
         c: torch.clamp(getattr(soa, c) * fac[k], 0.0, 1.0)
         for k, c in enumerate(ALBEDOS)})
+
+
+def moved_geometry(soa, scene_name):
+    """The geometry recipe's start: the scene with its rows moved."""
+    _, moves, _, _ = GEOMETRY[scene_name]
+    cols = {}
+    for c, by_row in moves.items():
+        col = getattr(soa, c).clone()
+        for row, offset in by_row.items():
+            col[row] += offset
+        cols[c] = col
+    return dataclasses.replace(soa, **cols)
+
+
+def geometry_config(scene_name, steps=8) -> InverseConfig:
+    _, _, optimize, rows = GEOMETRY[scene_name]
+    return InverseConfig(learning_rate=GEOMETRY_LR, steps=steps,
+                         optimize=optimize, rows=rows)
+
+
+def is_kernel(event_name: str, function: str) -> bool:
+    """Is a profiler device event a launch of the port's __global__
+    `function`: its name holds "::<function>(", or "::<function><" for the
+    hard and soft instantiations of a template. torch's own kernels, such as
+    indexing_backward_kernel, do not match."""
+    return f"::{function}(" in event_name or f"::{function}<" in event_name
 
 
 def cuda_ms(fn, reps=1):
@@ -182,7 +228,7 @@ def device_split(step, target, steps=3):
         by_name[e.name[:80]] += (e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
     return wall, span(dev), {
-        k: span(e for e in dev if f"::{name}(" in e.name)
+        k: span(e for e in dev if is_kernel(e.name, name))
         for k, name in KERNELS.items()}, [list(kv) for kv in top], len(dev)
 
 
@@ -195,9 +241,13 @@ def run(scene_name, cfg, steps=8, engine="mega"):
                                         device="cuda")
     camera = scene.camera.build("cuda")
     with torch.no_grad():
-        target = render_for_loss(scene.spheres, camera, cfg)
-    start = perturb_albedos(scene.spheres, scene.n_real)
-    inv = InverseConfig(learning_rate=1e-2, optimize=ALBEDOS)
+        target = render_for_loss(scene.spheres, camera, cfg, engine=engine)
+    if cfg.soft_silhouette:
+        start = moved_geometry(scene.spheres, scene_name)
+        inv = geometry_config(scene_name)
+    else:
+        start = perturb_albedos(scene.spheres, scene.n_real)
+        inv = InverseConfig(learning_rate=1e-2, optimize=ALBEDOS)
     params = params_of(start, inv.optimize)
     step, _ = make_train_step(start, camera, cfg, inv, params, engine=engine)
     for _ in range(WARMUP):
@@ -212,6 +262,8 @@ def run(scene_name, cfg, steps=8, engine="mega"):
     split = device_split(step, target, PROFILED_STEPS[engine])
     out = {
         "scene": scene_name, "engine": engine, "rows": scene.spheres.count,
+        "recipe": "geometry" if cfg.soft_silhouette else "albedo",
+        "soft_silhouette": cfg.soft_silhouette, "seed": cfg.seed,
         "width": cfg.width, "height": cfg.height, "spp": cfg.spp,
         "max_bounces": cfg.max_bounces, "steps": steps,
         "s_per_step": per_step, "steps_per_sec": 1.0 / per_step,
@@ -240,12 +292,22 @@ def main(argv=None):
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--engine", default="mega", choices=["mega", "pipeline"])
+    ap.add_argument("--soft", type=float, default=0.0,
+                    help="soft_silhouette width: the geometry recipe "
+                         "(small or medium scene)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("rays1bench_tpu_torch.bench.grad needs a CUDA "
                          "device")
+    seed = RenderConfig.seed
+    if args.soft:
+        if args.scene not in GEOMETRY:
+            raise SystemExit(f"--soft has geometry recipes for "
+                             f"{sorted(GEOMETRY)}, not {args.scene!r}")
+        seed = GEOMETRY[args.scene][0]
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
-                       max_bounces=MAX_BOUNCES, early_exit=False)
+                       max_bounces=MAX_BOUNCES, early_exit=False, seed=seed,
+                       soft_silhouette=args.soft)
     out = run(args.scene, cfg, args.steps, args.engine)
     out["device"] = torch.cuda.get_device_name(0)
     out["card"] = smi("name", "power.limit")[0]

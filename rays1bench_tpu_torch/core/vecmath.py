@@ -16,6 +16,7 @@ an AVX-512 host), while IEEE sqrt is what XLA, numpy and CUDA's sqrtf give.
 from __future__ import annotations
 
 import math
+import struct
 
 import torch
 
@@ -52,6 +53,36 @@ def reflect3(vx, vy, vz, nx, ny, nz):
 def safe_sqrt(x, eps=1e-12):
     """sqrt clamped at a strictly positive floor."""
     return sqrt(torch.clamp_min(x, eps))
+
+
+class _Sigmoid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = (1.0 / (1.0 + torch.exp(-x.double()))).float()
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return g * (y * (1.0 - y))
+
+
+def sigmoid(x):
+    """1 / (1 + exp(-x)) taken in float64 and rounded to float32: the CUDA
+    kernels' `r1b::sigmoid` does the same double operations, so the two
+    agree bit for bit on the card. jax.nn.sigmoid, torch.sigmoid and a
+    float32 expf are three other roundings. The derivative is
+    g * (y * (1 - y)) in float32, as lax.logistic's: autograd through the
+    float64 ops would give 0 * inf = NaN where exp(-x) overflows (a miss
+    lane's far row, masked but still differentiated)."""
+    return _Sigmoid.apply(x)
+
+
+def f32(x: float) -> float:
+    """The float32 nearest to x, as a Python float: a constant that a float32
+    tensor op then uses exactly, as a kernel argument of type float is."""
+    return struct.unpack("f", struct.pack("f", x))[0]
 
 
 # --- host-side scalar 3-vectors (camera setup) ------------------------------

@@ -1,9 +1,12 @@
 """Inverse rendering: Adam-fit scene parameters to a target image through the
-gradient path (rays1bench_tpu/grad/inverse.py, hard silhouettes).
+gradient path (rays1bench_tpu/grad/inverse.py).
 
 The hit topology is fixed under differentiation, so gradients flow through
 hit distances, normals and material columns, not through which sphere is
-hit. Two engines, as in the JAX package:
+hit. With cfg.soft_silhouette > 0 the soft-silhouette renderer also gives
+silhouettes a derivative, which is what moves centers and radii; its render
+is stochastic, so the loss becomes the cross-seed U-statistic (image_loss).
+Two engines, as in the JAX package:
 - "mega": the topology kernel forward and the fused backward kernel
   (grad/mega.py); its image carries the kernel's 8-bit albedos.
 - "pipeline": the plain fixed-trip renderer (render/pipeline.render_image)
@@ -17,8 +20,7 @@ the plain loop of fit_scene.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP item: a
 device mesh (the sharded fused gradient) and fit_camera (the
-differentiable camera constructor). Soft silhouettes are refused by
-RenderConfig itself.
+differentiable camera constructor).
 """
 
 from __future__ import annotations
@@ -122,13 +124,32 @@ def image_loss(params: Dict[str, torch.Tensor], spheres: SphereSOA,
                camera: Camera, target: torch.Tensor, cfg: RenderConfig,
                mesh=None, engine: str = "auto") -> torch.Tensor:
     """MSE in linear radiance between a render with `params` applied and the
-    target image."""
-    return _mse(render_for_loss(with_params(spheres, params), camera, cfg,
-                                mesh, engine), target)
+    target image.
+
+    With cfg.soft_silhouette > 0 the render is a stochastic estimator, and
+    E[(img - target)^2] = (E[img] - target)^2 + Var(img): the variance
+    term's gradient pushes silhouettes away from high-contrast backgrounds
+    whatever the target. The loss is then the U-statistic of two
+    independent renders, the second at seed + 101,
+    mean((imgA - target) * (imgB - target)), whose expectation is the
+    squared bias alone (rays1bench_tpu/grad/inverse.py:138-166)."""
+    sph = with_params(spheres, params)
+    return _loss_of([render_for_loss(sph, camera, c, mesh, engine)
+                     for c in _loss_cfgs(cfg)], target)
 
 
-def _mse(img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return torch.mean((img - target) ** 2)
+def _loss_cfgs(cfg: RenderConfig):
+    """The renders the loss takes: cfg, and under soft silhouettes a second
+    at seed + 101."""
+    if not cfg.soft_silhouette:
+        return (cfg,)
+    return (cfg, cfg.replace(seed=cfg.seed + 101))
+
+
+def _loss_of(imgs, target: torch.Tensor) -> torch.Tensor:
+    if len(imgs) == 1:
+        return torch.mean((imgs[0] - target) ** 2)
+    return torch.mean((imgs[0] - target) * (imgs[1] - target))
 
 
 def _no_mark():
@@ -142,9 +163,10 @@ def make_train_step(spheres_template: SphereSOA, camera: Camera,
     """Build (step, optimizer) over the parameter dict, whose tensors the
     step updates in place. step(target, mark) -> the loss before the update
     (a 0-dim tensor); mark() is called before the forward and after the
-    forward, the loss, the backward and the Adam update (bench.grad
-    records a CUDA event there). Row masks zero the gradient of rows outside
-    inv.rows / inv.rows_by before Adam sees it, as the JAX step does."""
+    forward (two renders under soft silhouettes), the loss, the backward
+    and the Adam update (bench.grad records a CUDA event there). Row masks
+    zero the gradient of rows outside inv.rows / inv.rows_by before Adam
+    sees it, as the JAX step does."""
     optimizer = torch.optim.Adam(list(params.values()),
                                  lr=inv.learning_rate, eps=1e-8)
     n_rows = spheres_template.count
@@ -165,10 +187,11 @@ def make_train_step(spheres_template: SphereSOA, camera: Camera,
     def step(target, mark=_no_mark):
         optimizer.zero_grad(set_to_none=True)
         mark()
-        img = render_for_loss(with_params(spheres_template, params), camera,
-                              cfg, mesh, engine)
+        spheres = with_params(spheres_template, params)
+        imgs = [render_for_loss(spheres, camera, c, mesh, engine)
+                for c in _loss_cfgs(cfg)]
         mark()
-        loss = _mse(img, target)
+        loss = _loss_of(imgs, target)
         mark()
         loss.backward()
         for name, m in masks.items():

@@ -1,4 +1,4 @@
-"""Megakernel-forward gradients (rays1bench_tpu/grad/mega.py, hard mode).
+"""Megakernel-forward gradients (rays1bench_tpu/grad/mega.py).
 
     forward : one launch of the topology kernel (megakernel.trace_topology)
               gives the image and the per-bounce hit topology;
@@ -24,7 +24,11 @@ the replay's derivative. It is the semantic reference, on any device.
 
 The gradient is the exact derivative of the replay render at the recorded
 topology; the forward's image uses the kernel's 8-bit albedos, the replay
-exact ones (megakernel.pack_spheres, mega_backward.pack_exact).
+exact ones (megakernel.pack_spheres, mega_backward.pack_exact). With
+cfg.soft_silhouette both paths are soft: the kernel promotes grazes and
+draws the two branches, the topology records the promoted rows, and the
+fused backward and the replay (promote=False) differentiate the two-branch
+estimator at them.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 // Reverse-mode adjoints of the per-ray math in path_math.cuh, derived by
 // hand: the fixed-topology replay bounce of the gradient path
-// (rays1bench_tpu_torch/kernels/mega_backward.py `bounce_core`, hard mode).
+// (rays1bench_tpu_torch/kernels/mega_backward.py `bounce_core`, hard and
+// soft mode).
 // The Pallas kernel got this transpose from an in-kernel jax.vjp; CUDA has
 // none, so every step of the chain is written out below, in reverse.
 //
@@ -16,8 +17,10 @@
 //   (torch.clamp_min); so safe_sqrt and normalize3 have a zero derivative
 //   under their eps floor instead of an infinite one;
 // - discrete choices carry no cotangent: the material, the dielectric's
-//   exiting / can_refract / reflect draw, metal_ok, and the continue mask,
-//   which the replay records in its forward pass.
+//   exiting / can_refract / reflect draw, metal_ok, the continue mask and
+//   (soft mode) the two-branch draw take = u < cover, which the replay
+//   records in its forward pass; the branch weights' denominators
+//   max(sg(cover), 1e-20) are detached.
 #pragma once
 
 #include <stdint.h>
@@ -69,17 +72,18 @@ __device__ __forceinline__ Hit replay_hit(const float* tab, int S, int j,
 }
 
 // normalize3: s = x / sqrt(max(|x|^2, eps)). g: cotangent of s; returns the
-// cotangent of x in (ax, ay, az).
+// cotangent of x in (ax, ay, az). eps is 1e-12 (vecmath.normalize3) or, for
+// the soft record's renormalized normal, 1e-20.
 __device__ __forceinline__ void normalize3_adj(float x, float y, float z,
                                                float gx, float gy, float gz,
                                                float& ax, float& ay,
-                                               float& az) {
+                                               float& az, float eps = kEps) {
   const float m = x * x + y * y + z * z;
-  const float q = sqrtf(clamp_min_nan(m, kEps));
+  const float q = sqrtf(clamp_min_nan(m, eps));
   const float inv = 1.0f / q;
   const float g_inv = gx * x + gy * y + gz * z;
   // inv = 1/q, q = sqrt(m): d inv / d m = -0.5 * inv^3 (0 under the floor).
-  const float g_m = m >= kEps ? -0.5f * g_inv * inv * inv * inv : 0.0f;
+  const float g_m = m >= eps ? -0.5f * g_inv * inv * inv * inv : 0.0f;
   ax = gx * inv + 2.0f * x * g_m;
   ay = gy * inv + 2.0f * y * g_m;
   az = gz * inv + 2.0f * z * g_m;
@@ -114,50 +118,16 @@ __device__ __forceinline__ void sky_adj(const float a[3], float dy,
   gdy += 0.5f * g_t;
 }
 
-// One replayed bounce that hit row j and continued: o' = p, d' = scatter
-// direction, a' = a * albedo. On entry go, gd, ga hold the cotangents of
-// o', d', a'; on exit those of o, d, a. gcol receives the cotangents of
-// the row's ten GRAD_ROWS columns. reflected: the dielectric's recorded
-// mirror choice.
-__device__ __forceinline__ void hit_bounce_adj(
-    const float* tab, int S, int j, float t_min, const float o[3],
-    const float d[3], const float a[3], bool reflected, uint32_t seed,
-    uint32_t rid, uint32_t bounce, float go[3], float gd[3], float ga[3],
-    float gcol[kNumGrad]) {
-  // ---- forward recompute (replay_hit's ops) -----------------------------
-  const float c[3] = {tab[kECX * S + j], tab[kECY * S + j],
-                      tab[kECZ * S + j]};
-  const float ivr = tab[kEINVR * S + j];
-  const float alb[3] = {tab[kEALBX * S + j], tab[kEALBY * S + j],
-                        tab[kEALBZ * S + j]};
-  const float fz = tab[kEFUZZ * S + j];
-  const float ri = tab[kEREF * S + j];
-  const int mt = (int)tab[kEMAT * S + j];
-  const float g[3] = {c[0] - o[0], c[1] - o[1], c[2] - o[2]};
-  const float nb = g[0] * d[0] + g[1] * d[1] + g[2] * d[2];
-  const float cc = g[0] * g[0] + g[1] * g[1] + g[2] * g[2] -
-                   tab[kERSQ * S + j];
-  const float disc = nb * nb - cc;
-  const float sq = sqrtf(clamp_min_nan(disc, kEps));
-  const float t1 = nb - sq;
-  const bool near = t1 > t_min;
-  const float t = near ? t1 : nb + sq;
-  const float p[3] = {o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2]};
-  const float pc[3] = {p[0] - c[0], p[1] - c[1], p[2] - c[2]};
-  const float n[3] = {pc[0] * ivr, pc[1] * ivr, pc[2] * ivr};
-
-  // ---- attenuation: a' = a * albedo -------------------------------------
-  for (int k = 0; k < 3; ++k) {
-    gcol[kEALBX + k] = ga[k] * a[k];
-    ga[k] = ga[k] * alb[k];
-  }
-
-  // ---- scatter: d' = s(d, n, fuzz, ref_idx) -----------------------------
-  const float gs[3] = {gd[0], gd[1], gd[2]};
-  float gdd[3] = {0.0f, 0.0f, 0.0f};  // cotangent of d through scatter
-  float gn[3] = {0.0f, 0.0f, 0.0f};
-  gcol[kEFUZZ] = 0.0f;
-  gcol[kEREF] = 0.0f;
+// Scatter: s(d, n, fuzz, ref_idx) of a hit with material mt. gs: cotangent
+// of s; adds the cotangents of d into gdd and of n into gn, and sets those
+// of fuzz and ref_idx. reflected: the dielectric's recorded mirror choice.
+__device__ __forceinline__ void scatter_adj(
+    int mt, const float d[3], const float n[3], float fz, float ri,
+    bool reflected, uint32_t seed, uint32_t rid, uint32_t bounce,
+    const float gs[3], float gdd[3], float gn[3], float& g_fuzz,
+    float& g_ref) {
+  g_fuzz = 0.0f;
+  g_ref = 0.0f;
   if (mt == 2) {
     if (reflected) {
       reflect3_adj(d, n, gs, gdd, gn);
@@ -204,26 +174,71 @@ __device__ __forceinline__ void hit_bounce_adj(
         gn[k] += exiting ? -gon[k] : gon[k];
       }
       // nio = ri (exiting) or 1 / ri
-      gcol[kEREF] = exiting ? g_nio : -g_nio / (ri * ri);
+      g_ref = exiting ? g_nio : -g_nio / (ri * ri);
     }
-  } else {
-    float bx, by, bz;
-    in_unit_ball(seed, rid, bounce, kSlotScatterBall, bx, by, bz);
-    const float ball[3] = {bx, by, bz};
-    if (mt == 1) {  // metal: normalize(reflect(d, n) + fuzz * ball)
-      const float d2 = 2.0f * dot3(d[0], d[1], d[2], n[0], n[1], n[2]);
-      float x[3];
-      for (int k = 0; k < 3; ++k) x[k] = (d[k] - d2 * n[k]) + fz * ball[k];
-      float gx[3];
-      normalize3_adj(x[0], x[1], x[2], gs[0], gs[1], gs[2], gx[0], gx[1],
-                     gx[2]);
-      gcol[kEFUZZ] = dot3(gx[0], gx[1], gx[2], bx, by, bz);
-      reflect3_adj(d, n, gx, gdd, gn);
-    } else {  // lambertian: normalize(n + ball)
-      normalize3_adj(n[0] + bx, n[1] + by, n[2] + bz, gs[0], gs[1], gs[2],
-                     gn[0], gn[1], gn[2]);
-    }
+    return;
   }
+  float bx, by, bz;
+  in_unit_ball(seed, rid, bounce, kSlotScatterBall, bx, by, bz);
+  const float ball[3] = {bx, by, bz};
+  if (mt == 1) {  // metal: normalize(reflect(d, n) + fuzz * ball)
+    const float d2 = 2.0f * dot3(d[0], d[1], d[2], n[0], n[1], n[2]);
+    float x[3];
+    for (int k = 0; k < 3; ++k) x[k] = (d[k] - d2 * n[k]) + fz * ball[k];
+    float gx[3];
+    normalize3_adj(x[0], x[1], x[2], gs[0], gs[1], gs[2], gx[0], gx[1],
+                   gx[2]);
+    g_fuzz = dot3(gx[0], gx[1], gx[2], bx, by, bz);
+    reflect3_adj(d, n, gx, gdd, gn);
+  } else {  // lambertian: normalize(n + ball)
+    float gl[3];
+    normalize3_adj(n[0] + bx, n[1] + by, n[2] + bz, gs[0], gs[1], gs[2],
+                   gl[0], gl[1], gl[2]);
+    for (int k = 0; k < 3; ++k) gn[k] += gl[k];
+  }
+}
+
+// One replayed bounce that hit row j and continued: o' = p, d' = scatter
+// direction, a' = a * albedo. On entry go, gd, ga hold the cotangents of
+// o', d', a'; on exit those of o, d, a. gcol receives the cotangents of
+// the row's ten GRAD_ROWS columns. reflected: the dielectric's recorded
+// mirror choice.
+__device__ __forceinline__ void hit_bounce_adj(
+    const float* tab, int S, int j, float t_min, const float o[3],
+    const float d[3], const float a[3], bool reflected, uint32_t seed,
+    uint32_t rid, uint32_t bounce, float go[3], float gd[3], float ga[3],
+    float gcol[kNumGrad]) {
+  // ---- forward recompute (replay_hit's ops) -----------------------------
+  const float c[3] = {tab[kECX * S + j], tab[kECY * S + j],
+                      tab[kECZ * S + j]};
+  const float ivr = tab[kEINVR * S + j];
+  const float alb[3] = {tab[kEALBX * S + j], tab[kEALBY * S + j],
+                        tab[kEALBZ * S + j]};
+  const float g[3] = {c[0] - o[0], c[1] - o[1], c[2] - o[2]};
+  const float nb = g[0] * d[0] + g[1] * d[1] + g[2] * d[2];
+  const float cc = g[0] * g[0] + g[1] * g[1] + g[2] * g[2] -
+                   tab[kERSQ * S + j];
+  const float disc = nb * nb - cc;
+  const float sq = sqrtf(clamp_min_nan(disc, kEps));
+  const float t1 = nb - sq;
+  const bool near = t1 > t_min;
+  const float t = near ? t1 : nb + sq;
+  const float p[3] = {o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2]};
+  const float pc[3] = {p[0] - c[0], p[1] - c[1], p[2] - c[2]};
+  const float n[3] = {pc[0] * ivr, pc[1] * ivr, pc[2] * ivr};
+
+  // ---- attenuation: a' = a * albedo -------------------------------------
+  for (int k = 0; k < 3; ++k) {
+    gcol[kEALBX + k] = ga[k] * a[k];
+    ga[k] = ga[k] * alb[k];
+  }
+
+  // ---- scatter: d' = s(d, n, fuzz, ref_idx) -----------------------------
+  float gdd[3] = {0.0f, 0.0f, 0.0f};  // cotangent of d through scatter
+  float gn[3] = {0.0f, 0.0f, 0.0f};
+  scatter_adj((int)tab[kEMAT * S + j], d, n, tab[kEFUZZ * S + j],
+              tab[kEREF * S + j], reflected, seed, rid, bounce, gd, gdd, gn,
+              gcol[kEFUZZ], gcol[kEREF]);
 
   // ---- normal: n = (p - c) * inv_r --------------------------------------
   float gp[3];
@@ -246,6 +261,157 @@ __device__ __forceinline__ void hit_bounce_adj(
   const float g_nb = g_t + 2.0f * nb * g_disc;
   const float g_cc = -g_disc;  // disc = nb^2 - cc
   gcol[kERSQ] = -g_cc;         // cc = |g|^2 - rsq
+  for (int k = 0; k < 3; ++k) {
+    // nb = g . d, g = c - o
+    const float gg = 2.0f * g[k] * g_cc + g_nb * d[k];
+    gd[k] += g_nb * g[k];
+    gcol[kECX + k] += gg;
+    go[k] -= gg;
+  }
+}
+
+// ---- soft mode ----------------------------------------------------------
+
+// Replayed soft hit record of row j (render/intersect.hit_record_from_index
+// with promote=False): r1b::soft_geometry on the exact table, with the
+// exact material columns.
+__device__ __forceinline__ SoftHit replay_soft_hit(const float* tab, int S,
+                                                   int j, float t_min,
+                                                   float inv_eps, float ox,
+                                                   float oy, float oz,
+                                                   float dx, float dy,
+                                                   float dz) {
+  SoftHit r;
+  soft_geometry(tab[kECX * S + j], tab[kECY * S + j], tab[kECZ * S + j],
+                tab[kERSQ * S + j], tab[kEINVR * S + j], t_min, inv_eps, ox,
+                oy, oz, dx, dy, dz, r);
+  r.h.mat_type = (int)tab[kEMAT * S + j];
+  r.h.albedo_x = tab[kEALBX * S + j];
+  r.h.albedo_y = tab[kEALBY * S + j];
+  r.h.albedo_z = tab[kEALBZ * S + j];
+  r.h.fuzz = tab[kEFUZZ * S + j];
+  r.h.ref_idx = tab[kEREF * S + j];
+  return r;
+}
+
+// One replayed soft bounce that hit row j and continued, in either branch
+// of the two-branch draw (take: bounced off the sphere; else passed through
+// from the far exit). Same contract as hit_bounce_adj. The chain, forward:
+//   g = c - o, nb = g.d, cc = |g|^2 - rsq, disc = nb^2 - cc,
+//   sq = sqrt(max(disc, 1e-12)), t = nb -/+ sq, p = o + t d,
+//   n = normalize((p - c) * inv_r) (eps 1e-20),
+//   edge = sqrt(max(rsq, 0)) - sqrt(max(cc + rsq - nb^2, 1e-20)),
+//   cover = sigmoid(edge * inv_eps), t2 = nb + sq;
+//   take: o' = p, d' = scatter(d, n), a' = a * (albedo * w_b),
+//         w_b = cover / max(sg(cover), 1e-20);
+//   pass: o' = o + t2 d, d' = d, a' = a * w_t,
+//         w_t = (1 - cover) / max(1 - sg(cover), 1e-20).
+// A promoted lane has disc < 0: the floor of sq blocks its cotangent, as
+// torch.clamp_min does (it passes where x >= eps).
+__device__ __forceinline__ void soft_bounce_adj(
+    const float* tab, int S, int j, float t_min, float inv_eps,
+    const float o[3], const float d[3], const float a[3], bool take,
+    bool reflected, uint32_t seed, uint32_t rid, uint32_t bounce,
+    float go[3], float gd[3], float ga[3], float gcol[kNumGrad]) {
+  // ---- forward recompute (replay_soft_hit's ops) -------------------------
+  const float c[3] = {tab[kECX * S + j], tab[kECY * S + j],
+                      tab[kECZ * S + j]};
+  const float rsq = tab[kERSQ * S + j];
+  const float ivr = tab[kEINVR * S + j];
+  const float alb[3] = {tab[kEALBX * S + j], tab[kEALBY * S + j],
+                        tab[kEALBZ * S + j]};
+  const float g[3] = {c[0] - o[0], c[1] - o[1], c[2] - o[2]};
+  const float nb = g[0] * d[0] + g[1] * d[1] + g[2] * d[2];
+  const float cc = g[0] * g[0] + g[1] * g[1] + g[2] * g[2] - rsq;
+  const float disc = nb * nb - cc;
+  const float sq = sqrtf(clamp_min_nan(disc, kEps));
+  const float t1 = nb - sq;
+  const bool near = t1 > t_min;
+  const float t = near ? t1 : nb + sq;
+  const float t2 = nb + sq;
+  const float bsq = cc + rsq - nb * nb;
+  const float b_imp = sqrtf(clamp_min_nan(bsq, kTiny));
+  const float sr = sqrtf(clamp_min_nan(rsq, 0.0f));
+  const float x = (sr - b_imp) * inv_eps;
+  const float cover = sigmoid(x);
+
+  float g_cover, g_t = 0.0f, g_t2 = 0.0f;
+  float gp[3] = {0.0f, 0.0f, 0.0f};   // cotangent of p (take)
+  float gp2[3] = {0.0f, 0.0f, 0.0f};  // cotangent of p2 (pass)
+  float gdd[3] = {0.0f, 0.0f, 0.0f};  // cotangent of d through d'
+  if (take) {
+    const float p[3] = {o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2]};
+    const float pc[3] = {p[0] - c[0], p[1] - c[1], p[2] - c[2]};
+    const float nr[3] = {pc[0] * ivr, pc[1] * ivr, pc[2] * ivr};
+    const float inv_len = 1.0f / sqrtf(clamp_min_nan(
+        nr[0] * nr[0] + nr[1] * nr[1] + nr[2] * nr[2], kTiny));
+    const float n[3] = {nr[0] * inv_len, nr[1] * inv_len, nr[2] * inv_len};
+    // a' = a * (albedo * w_b)
+    const float w_b = bounce_weight(cover);
+    float g_wb = 0.0f;
+    for (int k = 0; k < 3; ++k) {
+      const float g_m = ga[k] * a[k];
+      gcol[kEALBX + k] = g_m * w_b;
+      g_wb += g_m * alb[k];
+      ga[k] = ga[k] * (alb[k] * w_b);
+    }
+    g_cover = g_wb / clamp_min_nan(cover, kTiny);
+    // d' = scatter(d, n)
+    float gn[3] = {0.0f, 0.0f, 0.0f};
+    scatter_adj((int)tab[kEMAT * S + j], d, n, tab[kEFUZZ * S + j],
+                tab[kEREF * S + j], reflected, seed, rid, bounce, gd, gdd,
+                gn, gcol[kEFUZZ], gcol[kEREF]);
+    // n = normalize(nr), nr = (p - c) * inv_r
+    float gnr[3];
+    normalize3_adj(nr[0], nr[1], nr[2], gn[0], gn[1], gn[2], gnr[0], gnr[1],
+                   gnr[2], kTiny);
+    for (int k = 0; k < 3; ++k) {
+      gp[k] = go[k] + gnr[k] * ivr;
+      gcol[kECX + k] = -gnr[k] * ivr;
+    }
+    gcol[kEINVR] = dot3(gnr[0], gnr[1], gnr[2], pc[0], pc[1], pc[2]);
+    g_t = dot3(gp[0], gp[1], gp[2], d[0], d[1], d[2]);  // p = o + t d
+  } else {
+    // a' = a * w_t, d' = d, o' = p2
+    const float w_t = pass_weight(cover);
+    float g_wt = 0.0f;
+    for (int k = 0; k < 3; ++k) {
+      g_wt += ga[k] * a[k];
+      ga[k] = ga[k] * w_t;
+      gcol[kEALBX + k] = 0.0f;
+      gcol[kECX + k] = 0.0f;
+      gdd[k] = gd[k];
+      gp2[k] = go[k];
+    }
+    gcol[kEFUZZ] = 0.0f;
+    gcol[kEREF] = 0.0f;
+    gcol[kEINVR] = 0.0f;
+    g_cover = -g_wt / clamp_min_nan(1.0f - cover, kTiny);
+    g_t2 = dot3(gp2[0], gp2[1], gp2[2], d[0], d[1], d[2]);  // p2 = o + t2 d
+  }
+  for (int k = 0; k < 3; ++k) {
+    go[k] = gp[k] + gp2[k];
+    gd[k] = gdd[k] + gp[k] * t + gp2[k] * t2;
+  }
+
+  // ---- cover = sigmoid(x), x = edge * inv_eps ------------------------------
+  // vecmath.sigmoid's derivative: g * (y * (1 - y)), as lax.logistic's.
+  const float g_edge = g_cover * (cover * (1.0f - cover)) * inv_eps;
+  // edge = sr - b_imp, sr = sqrt(max(rsq, 0)), b_imp = sqrt(max(bsq, 1e-20))
+  float g_rsq = rsq >= 0.0f ? 0.5f * g_edge / sr : 0.0f;
+  const float g_bsq = bsq >= kTiny ? 0.5f * -g_edge / b_imp : 0.0f;
+  // bsq = cc + rsq - nb^2
+  float g_cc = g_bsq;
+  g_rsq += g_bsq;
+  float g_nb = -2.0f * nb * g_bsq;
+
+  // ---- t = nb -/+ sq, t2 = nb + sq, sq = sqrt(max(disc, 1e-12)) ------------
+  const float g_sq = (near ? -g_t : g_t) + g_t2;
+  g_nb += g_t + g_t2;
+  const float g_disc = disc >= kEps ? 0.5f * g_sq / sq : 0.0f;
+  g_nb += 2.0f * nb * g_disc;
+  g_cc += -g_disc;              // disc = nb^2 - cc
+  gcol[kERSQ] = g_rsq - g_cc;   // cc = |g|^2 - rsq
   for (int k = 0; k < 3; ++k) {
     // nb = g . d, g = c - o
     const float gg = 2.0f * g[k] * g_cc + g_nb * d[k];

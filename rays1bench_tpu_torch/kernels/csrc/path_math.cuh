@@ -1,10 +1,12 @@
 // Per-ray math shared by the port's path-tracing kernels: the counter-hash
 // RNG lattice, the samplers, thin-lens raygen, the dense closest-hit sweep
-// over the packed sphere table, its unpack, material scatter and the sky.
+// over the packed sphere table, its unpack, the soft-silhouette mode's graze
+// sweep and soft record, material scatter and the sky.
 //
 // Each function computes exactly what its plain PyTorch counterpart computes
-// (rays1bench_tpu_torch/core/rng.py, render/camera.py, render/materials.py,
-// render/integrator.py, kernels/megakernel.py), op for op and in the same
+// (rays1bench_tpu_torch/core/rng.py, core/vecmath.py, render/camera.py,
+// render/intersect.py, render/materials.py, render/integrator.py,
+// kernels/megakernel.py), op for op and in the same
 // order. That equality holds only when the file is compiled with
 // --fmad=false and without --use_fast_math (kernels/build.py): no
 // multiply-add is contracted, division and sqrtf are IEEE, and sqrtf of a
@@ -231,6 +233,127 @@ __device__ __forceinline__ Hit unpack_hit(const float* sph, int S, int best,
   h.fuzz = mparam;
   h.ref_idx = h.mat_type == 2 ? mparam : 1.0f;
   return h;
+}
+
+// ---- soft-silhouette mode (megakernel.graze_sweep, soft_sweep,
+// soft_hit_record; render/integrator.two_branch) ------------------------------
+
+constexpr uint32_t kSlotSilhouetteP = 14;
+constexpr float kTiny = 0x1.79ca1p-67f;    // float32(1e-20)
+constexpr float kEps12 = 0x1.197998p-40f;  // float32(1e-12)
+
+// 1 / (1 + exp(-x)) in double, rounded to float: core/vecmath.sigmoid.
+__device__ __forceinline__ float sigmoid(float x) {
+  return (float)(1.0 / (1.0 + exp(-(double)x)));
+}
+
+// The graze sweep: among rows with radius_sq > -1e29 whose closest approach
+// nb lies in (t_min, bt) and that the ray misses (edge <= 0), the first row
+// with the largest edge = sr[s] - sqrt(max(|co|^2 - nb^2, 1e-20)), where
+// sr[s] = sqrt(max(radius_sq, 0)) is precomputed per block (the same float
+// op, so the same bits). The cheap tests run before the second square root.
+// Returns the row, or -1; be is its edge (-inf without one), gnb its nb.
+__device__ __forceinline__ int graze_sweep(const float* sph, const float* sr,
+                                           int S, float t_min, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz, float bt,
+                                           float& be, float& gnb) {
+  be = -__int_as_float(0x7f800000);  // -inf
+  gnb = 0.0f;
+  int row = -1;
+  for (int s = 0; s < S; ++s) {
+    const float cox = sph[kCX * S + s] - ox;
+    const float coy = sph[kCY * S + s] - oy;
+    const float coz = sph[kCZ * S + s] - oz;
+    const float nb = cox * dx + coy * dy + coz * dz;
+    if (!(nb > t_min && nb < bt && sph[kRSQ * S + s] > -0x1.431e1p+96f))
+      continue;
+    const float co2 = cox * cox + coy * coy + coz * coz;
+    const float edge = sr[s] - sqrtf(clamp_min_nan(co2 - nb * nb, kTiny));
+    if (edge <= 0.0f && edge > be) {
+      be = edge;
+      gnb = nb;
+      row = s;
+    }
+  }
+  return row;
+}
+
+struct SoftHit {
+  Hit h;
+  float cover, p2x, p2y, p2z;
+};
+
+// Geometry of a soft hit on the sphere (c, rsq, ivr) (render/intersect.
+// soft_fields): t recomputed with safe_sqrt, the point, the normal
+// renormalized with IEEE 1/sqrt, cover = sigmoid(edge * inv_eps) and the far
+// exit o + (nb + sq) d. Leaves the material fields of r.h unset.
+__device__ __forceinline__ void soft_geometry(float cx, float cy, float cz,
+                                              float rsq, float ivr,
+                                              float t_min, float inv_eps,
+                                              float ox, float oy, float oz,
+                                              float dx, float dy, float dz,
+                                              SoftHit& r) {
+  const float gx = cx - ox, gy = cy - oy, gz = cz - oz;
+  const float nb = gx * dx + gy * dy + gz * dz;
+  const float c = gx * gx + gy * gy + gz * gz - rsq;
+  const float sq = sqrtf(clamp_min_nan(nb * nb - c, kEps12));
+  const float t1 = nb - sq;
+  const float t = t1 > t_min ? t1 : nb + sq;
+  Hit& h = r.h;
+  h.px = ox + t * dx;
+  h.py = oy + t * dy;
+  h.pz = oz + t * dz;
+  float nx = (h.px - cx) * ivr, ny = (h.py - cy) * ivr, nz = (h.pz - cz) * ivr;
+  const float inv_len =
+      1.0f / sqrtf(clamp_min_nan(nx * nx + ny * ny + nz * nz, kTiny));
+  h.nx = nx * inv_len;
+  h.ny = ny * inv_len;
+  h.nz = nz * inv_len;
+  const float b_imp = sqrtf(clamp_min_nan(c + rsq - nb * nb, kTiny));
+  const float edge = sqrtf(clamp_min_nan(rsq, 0.0f)) - b_imp;
+  r.cover = sigmoid(edge * inv_eps);
+  const float t2 = nb + sq;
+  r.p2x = ox + t2 * dx;
+  r.p2y = oy + t2 * dy;
+  r.p2z = oz + t2 * dz;
+}
+
+// Soft hit record of row j of the packed table (megakernel.soft_hit_record):
+// soft_geometry and the payload decoded as unpack_hit decodes it.
+__device__ __forceinline__ SoftHit soft_hit(const float* sph, int S, int j,
+                                            float t_min, float inv_eps,
+                                            float ox, float oy, float oz,
+                                            float dx, float dy, float dz) {
+  SoftHit r;
+  soft_geometry(sph[kCX * S + j], sph[kCY * S + j], sph[kCZ * S + j],
+                sph[kRSQ * S + j], sph[kINVR * S + j], t_min, inv_eps, ox, oy,
+                oz, dx, dy, dz, r);
+  const float albp = sph[kALB * S + j], mtp = sph[kMTP * S + j];
+  float mt_f = floorf(mtp * (1.0f / 32.0f));
+  r.h.mat_type = (int)mt_f;
+  float mparam = mtp - mt_f * 32.0f;
+  float a_r = floorf(albp * (1.0f / 65536.0f));
+  float rem = albp - a_r * 65536.0f;
+  float a_g = floorf(rem * (1.0f / 256.0f));
+  float a_b = rem - a_g * 256.0f;
+  const float inv255 = 0x1.010102p-8f;  // float32(1/255)
+  r.h.albedo_x = a_r * inv255;
+  r.h.albedo_y = a_g * inv255;
+  r.h.albedo_z = a_b * inv255;
+  r.h.fuzz = mparam;
+  r.h.ref_idx = r.h.mat_type == 2 ? mparam : 1.0f;
+  return r;
+}
+
+// Branch weights of the two-branch draw: w_b = cover / max(cover, 1e-20)
+// for the bounce, w_t = (1 - cover) / max(1 - cover, 1e-20) for the
+// pass-through (both 1 in value, as the plain version computes them).
+__device__ __forceinline__ float bounce_weight(float cover) {
+  return cover / clamp_min_nan(cover, kTiny);
+}
+__device__ __forceinline__ float pass_weight(float cover) {
+  return (1.0f - cover) / clamp_min_nan(1.0f - cover, kTiny);
 }
 
 // ---- scatter (render/materials.py) and sky (render/integrator.py) ----------

@@ -1,5 +1,5 @@
 """Fused backward of the fixed-topology replay: the CUDA kernel's wrapper and
-its plain version (rays1bench_tpu/kernels/mega_backward.py, hard mode).
+its plain version (rays1bench_tpu/kernels/mega_backward.py).
 
 The gradient of the megakernel-forward path (grad/mega.py) is the exact
 derivative of the replay render at the recorded hit topology: every bounce's
@@ -11,6 +11,12 @@ camera. On a CUDA tensor it launches csrc/mega_backward.cu, whose adjoint is
 derived by hand (csrc/path_adjoint.cuh); on a CPU tensor it runs
 `backward_reference`, torch.autograd over a replay written with
 `bounce_core`. There is no fallback between the two.
+
+With cfg.soft_silhouette the replayed bounce is the detached two-branch
+soft-silhouette estimator at the recorded, already promoted rows
+(mega_backward._bounce_core's soft branch): cover and the far exit are
+rebuilt from the row's columns, the branch draw is recomputed from the
+SILHOUETTE_P slot, and the branch weights carry the silhouette term.
 
 Dropped TPU workarounds: the S-select sweep of `lookup` (a GPU loads the
 winning row by index), the slot order and its tiles, and the VMEM limits
@@ -26,11 +32,12 @@ import ctypes
 import torch
 
 from rays1bench_tpu_torch.core.config import RenderConfig
-from rays1bench_tpu_torch.core.vecmath import safe_sqrt
+from rays1bench_tpu_torch.core.vecmath import f32, safe_sqrt
 from rays1bench_tpu_torch.kernels import build
 from rays1bench_tpu_torch.kernels.megakernel import check_rays, check_tensor
-from rays1bench_tpu_torch.render.integrator import sky_color
-from rays1bench_tpu_torch.render.intersect import HitRecord, take_cols
+from rays1bench_tpu_torch.render.integrator import sky_color, two_branch
+from rays1bench_tpu_torch.render.intersect import (HitRecord, SoftHitRecord,
+                                                   soft_fields, take_cols)
 from rays1bench_tpu_torch.render.materials import scatter
 from rays1bench_tpu_torch.scene.spheres import PreparedSpheres
 
@@ -71,12 +78,14 @@ def supported(s_count: int, cfg: RenderConfig) -> bool:
 
 
 def bounce_core(o, d, a, cols, mt, hit, alive, cont, b, ray_id, seed,
-                t_min, max_bounces):
-    """One differentiable replay bounce on per-lane values, hard mode
+                t_min, max_bounces, soft_eps: float = 0.0):
+    """One differentiable replay bounce on per-lane values
     (mega_backward._bounce_core): the hit record of the given columns, the
     scatter, the sky on a miss, and the state update. cols: the ten
     GRAD_ROWS columns of each lane's row; cont=None computes the continue
-    mask, else the given one is used.
+    mask, else the given one is used. soft_eps > 0: the soft fields of the
+    record (render/intersect.hit_record_from_index's formulas, no
+    promotion) and the two-branch draw (render/integrator.two_branch).
 
     Returns (o', d', a', radiance added, cont)."""
     ox, oy, oz = o
@@ -96,11 +105,18 @@ def bounce_core(o, d, a, cols, mt, hit, alive, cont, b, ray_id, seed,
     nx = (px - cx) * ivr
     ny = (py - cy) * ivr
     nz = (pz - cz) * ivr
-    rec = HitRecord(hit=hit, t=t, px=px, py=py, pz=pz, nx=nx, ny=ny, nz=nz,
-                    mat_type=mt, albedo_x=alx, albedo_y=aly, albedo_z=alz,
-                    fuzz=fz, ref_idx=ri)
+    soft = {}
+    if soft_eps:
+        (nx, ny, nz), soft = soft_fields(ox, oy, oz, dx, dy, dz, rsq, nb, c,
+                                         sq, nx, ny, nz, soft_eps)
+    rec = (SoftHitRecord if soft_eps else HitRecord)(
+        hit=hit, t=t, px=px, py=py, pz=pz, nx=nx, ny=ny, nz=nz, mat_type=mt,
+        albedo_x=alx, albedo_y=aly, albedo_z=alz, fuzz=fz, ref_idx=ri, **soft)
 
     (sx, sy, sz), (mr, mg, mb), ok = scatter(dx, dy, dz, rec, seed, ray_id, b)
+    if soft_eps:
+        (px, py, pz), (sx, sy, sz), (mr, mg, mb), ok, _ = two_branch(
+            rec, sx, sy, sz, mr, mg, mb, ok, dx, dy, dz, seed, ray_id, b)
     skr, skg, skb = sky_color(dx, dy, dz)
     miss = alive & ~hit
     radd = (torch.where(miss, ar * skr, 0.0),
@@ -134,7 +150,8 @@ def replay(table: torch.Tensor, o, d, ray_id, topo, cfg: RenderConfig):
         mt = cols[NUM_GRAD].detach().to(torch.int32)
         o, d, a, radd, alive = bounce_core(
             o, d, a, tuple(cols[:NUM_GRAD]), mt, j >= 0, alive, None, b,
-            ray_id, cfg.seed, cfg.t_min, cfg.max_bounces)
+            ray_id, cfg.seed, cfg.t_min, cfg.max_bounces,
+            cfg.soft_silhouette)
         rad = [r + x for r, x in zip(rad, radd)]
     return tuple(rad)
 
@@ -166,7 +183,7 @@ def _backward_kernel():
     fn = lib.rays1_backward_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f,
-                   ctypes.c_uint32, p, p, p, p, p, p, p, p]
+                   ctypes.c_uint32, f, f, p, p, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -184,7 +201,8 @@ def backward(prep: PreparedSpheres, ox, oy, oz, dx, dy, dz, ray_id, ct_r,
     columns, (ct_ox, ct_oy, ct_oz, ct_dx, ct_dy, ct_dz) float32[N]). CUDA
     tensors launch csrc/mega_backward.cu on the current stream (its column
     sums are float atomics, so their order changes from run to run); CPU
-    tensors run backward_reference."""
+    tensors run backward_reference. cfg.soft_silhouette > 0 differentiates
+    the soft replay; topo then holds the soft forward's promoted rows."""
     global LAUNCHES
     device = ox.device
     n = ox.shape[0] if ox.dim() == 1 else -1
@@ -212,12 +230,14 @@ def backward(prep: PreparedSpheres, ox, oy, oz, dx, dy, dz, ray_id, ct_r,
                 for _ in range(6))
     if n == 0:
         return grads, cts
+    soft = cfg.soft_silhouette
     fn = _backward_kernel()
     err = fn(table.data_ptr(), s_count, ox.data_ptr(), oy.data_ptr(),
              oz.data_ptr(), dx.data_ptr(), dy.data_ptr(), dz.data_ptr(),
              ray_id.data_ptr(), ct_r.data_ptr(), ct_g.data_ptr(),
              ct_b.data_ptr(), topo.data_ptr(), n, cfg.num_primary_rays,
-             cfg.max_bounces, cfg.t_min, cfg.seed, grads.data_ptr(),
+             cfg.max_bounces, cfg.t_min, cfg.seed, soft,
+             f32(1.0 / soft) if soft else 0.0, grads.data_ptr(),
              *(c.data_ptr() for c in cts),
              torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

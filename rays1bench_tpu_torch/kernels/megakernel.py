@@ -27,6 +27,14 @@ slot permutation (the kernels read and write in ray or image order),
 row-granular argsort compaction (see trace_wavefront). Without `sync_every`
 there is no overshoot past max_bounces, so the topology write guard of the
 Pallas kernel has nothing to guard.
+
+`trace_topology` and `trace_oneshot` take the soft-silhouette mode
+(cfg.soft_silhouette > 0), as the Pallas `_kernel` does with `soft_eps`:
+after the hard sweep a second, graze sweep finds each ray's best near miss
+in front of its hit (`graze_sweep`), a graze inside the band replaces the
+winner (`soft_sweep`), the hit record gains the soft fields
+(`soft_hit_record`) and the bounce takes the two-branch draw. The respawn
+and wavefront engines are hard only and refuse it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,13 +43,15 @@ import ctypes
 
 import torch
 
+from rays1bench_tpu_torch.core import rng as rng_mod
 from rays1bench_tpu_torch.core.config import RenderConfig
-from rays1bench_tpu_torch.core.vecmath import sqrt
+from rays1bench_tpu_torch.core.vecmath import f32, safe_sqrt, sqrt
 from rays1bench_tpu_torch.kernels import build
 from rays1bench_tpu_torch.render.camera import Camera
 from rays1bench_tpu_torch.render.integrator import (bounce_step,
                                                     initial_state, trace)
-from rays1bench_tpu_torch.render.intersect import HitRecord
+from rays1bench_tpu_torch.render.intersect import (HitRecord, SoftHitRecord,
+                                                   near_cut, soft_fields)
 from rays1bench_tpu_torch.render.pipeline import primary_rays
 from rays1bench_tpu_torch.scene.spheres import PreparedSpheres
 
@@ -116,17 +126,9 @@ def sweep(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, t_min: float):
     return best, bt
 
 
-def closest_hit_record(packed: torch.Tensor, best, bt, ox, oy, oz,
-                       dx, dy, dz) -> HitRecord:
-    """Unpack the winning row's payload (megakernel._closest_hit_record):
-    albedo decoded by a multiply with float32(1/255), ref_idx = param for
-    dielectrics and 1 otherwise, fuzz = param."""
-    cx, cy, cz, ivr, albp, mtp = (packed[r][best] for r in (0, 1, 2, 4, 5, 6))
-    hit = bt < _BIG
-    t = torch.where(hit, bt, 1.0)
-    px = ox + t * dx
-    py = oy + t * dy
-    pz = oz + t * dz
+def _material(albp, mtp):
+    """Decode the packed payload: albedo by a multiply with float32(1/255),
+    ref_idx = param for dielectrics and 1 otherwise, fuzz = param."""
     mt_f = torch.floor(mtp * (1.0 / 32.0))
     mt_i = mt_f.to(torch.int32)
     mparam = mtp - mt_f * 32.0
@@ -135,12 +137,83 @@ def closest_hit_record(packed: torch.Tensor, best, bt, ox, oy, oz,
     a_g = torch.floor(rem * (1.0 / 256.0))
     a_b = rem - a_g * 256.0
     inv255 = 1.0 / 255.0
+    return dict(mat_type=mt_i, albedo_x=a_r * inv255, albedo_y=a_g * inv255,
+                albedo_z=a_b * inv255, fuzz=mparam,
+                ref_idx=torch.where(mt_i == 2, mparam, 1.0))
+
+
+def closest_hit_record(packed: torch.Tensor, best, bt, ox, oy, oz,
+                       dx, dy, dz) -> HitRecord:
+    """Unpack the winning row's payload (megakernel._closest_hit_record)."""
+    cx, cy, cz, ivr, albp, mtp = (packed[r][best] for r in (0, 1, 2, 4, 5, 6))
+    hit = bt < _BIG
+    t = torch.where(hit, bt, 1.0)
+    px = ox + t * dx
+    py = oy + t * dy
+    pz = oz + t * dz
     return HitRecord(
         hit=hit, t=t, px=px, py=py, pz=pz,
         nx=(px - cx) * ivr, ny=(py - cy) * ivr, nz=(pz - cz) * ivr,
-        mat_type=mt_i,
-        albedo_x=a_r * inv255, albedo_y=a_g * inv255, albedo_z=a_b * inv255,
-        fuzz=mparam, ref_idx=torch.where(mt_i == 2, mparam, 1.0))
+        **_material(albp, mtp))
+
+
+def graze_sweep(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, bt,
+                t_min: float):
+    """The soft mode's second sweep (megakernel._make_intersect's
+    make_graze_step), all rows at once: among rows with radius_sq > -1e29
+    (not placeholders) that the ray misses, edge = sqrt(max(rsq, 0)) -
+    sqrt(max(|co|^2 - nb^2, 1e-20)) <= 0, with closest approach nb in
+    (t_min, bt), the first row with the largest edge. Returns (row int64[N],
+    edge float32[N], -inf where no row qualifies; nb float32[N] of that
+    row)."""
+    rsq = packed[3]
+    cox = packed[0] - ox[:, None]
+    coy = packed[1] - oy[:, None]
+    coz = packed[2] - oz[:, None]
+    nb = cox * dx[:, None] + coy * dy[:, None] + coz * dz[:, None]
+    co2 = cox * cox + coy * coy + coz * coz
+    edge = (sqrt(torch.clamp_min(rsq, 0.0))
+            - sqrt(torch.clamp_min(co2 - nb * nb, 1e-20)))
+    graze = ((rsq > -1e29) & (nb > t_min) & (edge <= 0.0)
+             & (nb < bt[:, None]))
+    be, row = torch.max(torch.where(graze, edge, float("-inf")), dim=1)
+    return row, be, nb.gather(1, row[:, None])[:, 0]
+
+
+def soft_sweep(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, t_min: float,
+               soft_eps: float):
+    """The hard sweep, the graze sweep and the promotion merge: a lane whose
+    best graze edge is above -9.2 * soft_eps takes the grazed row, at t =
+    nb. Returns (row int64[N], t float32[N], +inf on a miss; promoted
+    bool[N])."""
+    best, bt = sweep(packed, ox, oy, oz, dx, dy, dz, t_min)
+    row, be, nb = graze_sweep(packed, ox, oy, oz, dx, dy, dz, bt, t_min)
+    near = be > near_cut(soft_eps)
+    return torch.where(near, row, best), torch.where(near, nb, bt), near
+
+
+def soft_hit_record(packed: torch.Tensor, best, bt, ox, oy, oz, dx, dy, dz,
+                    t_min: float, soft_eps: float) -> SoftHitRecord:
+    """Soft-mode hit record of the merged winner
+    (megakernel._soft_hit_record): t recomputed from the row with
+    safe_sqrt and render/intersect.soft_fields (IEEE 1 / sqrt where the JAX
+    kernel has rsqrt), as hit_record_from_index builds them. hit = bt <
+    3e38."""
+    cx, cy, cz, rsq, ivr, albp, mtp = (packed[r][best] for r in range(7))
+    gx, gy, gz = cx - ox, cy - oy, cz - oz
+    nb = gx * dx + gy * dy + gz * dz
+    c_j = gx * gx + gy * gy + gz * gz - rsq
+    sq = safe_sqrt(nb * nb - c_j)
+    t1 = nb - sq
+    t = torch.where(t1 > t_min, t1, nb + sq)
+    px = ox + t * dx
+    py = oy + t * dy
+    pz = oz + t * dz
+    (nx, ny, nz), soft = soft_fields(
+        ox, oy, oz, dx, dy, dz, rsq, nb, c_j, sq, (px - cx) * ivr,
+        (py - cy) * ivr, (pz - cz) * ivr, soft_eps)
+    return SoftHitRecord(hit=bt < _BIG, t=t, px=px, py=py, pz=pz, nx=nx,
+                         ny=ny, nz=nz, **soft, **_material(albp, mtp))
 
 
 def packed_intersector(packed: torch.Tensor, t_min: float):
@@ -150,6 +223,15 @@ def packed_intersector(packed: torch.Tensor, t_min: float):
         best, bt = sweep(packed, ox, oy, oz, dx, dy, dz, t_min)
         return closest_hit_record(packed, best, bt, ox, oy, oz, dx, dy, dz)
     return intersector
+
+
+def hard_only(cfg: RenderConfig, engine: str):
+    """Raise on the soft renderer: the respawn and wavefront engines are hard
+    only (megakernel.py:894, :999)."""
+    if cfg.soft_silhouette:
+        raise ValueError(f"the {engine} engine is the hard renderer; the soft "
+                         f"silhouette mode runs in the one-shot kernel "
+                         f"(trace_topology, trace_oneshot)")
 
 
 def _span(cfg: RenderConfig, sample_span):
@@ -171,6 +253,7 @@ def trace_respawn_reference(packed: torch.Tensor, cam: torch.Tensor, pid, x,
     sample order.
 
     Returns ((rr, rg, rb) float32[N] sample sums, cnt int32[N] rays traced)."""
+    hard_only(cfg, "respawn")
     s_lo, s_hi = _span(cfg, sample_span)
     camera = unpack_camera(cam)
     t_min = cfg.t_min
@@ -229,6 +312,7 @@ def trace_respawn(packed: torch.Tensor, cam: torch.Tensor,
     tensor, the ray count). CUDA tensors launch the kernel of csrc/respawn.cu
     on the current stream; CPU tensors run trace_respawn_reference."""
     global LAUNCHES
+    hard_only(cfg, "respawn")
     device = packed.device
     s_count = packed.shape[1] if packed.dim() == 2 else -1
     check_tensor("packed", packed, torch.float32, (NUM_SPHERE_ROWS, s_count),
@@ -267,34 +351,74 @@ def trace_respawn(packed: torch.Tensor, cam: torch.Tensor,
 
 
 def trace_topology_reference(packed: torch.Tensor, ox, oy, oz, dx, dy, dz,
-                             ray_id, cfg: RenderConfig):
+                             ray_id, cfg: RenderConfig, stats=None):
     """Plain version of the one-shot topology kernel, on any device: the
     packed-table sweep under render.integrator.trace, in the per-bounce
-    order of megakernel._make_bounce. Lanes with ray_id >=
-    cfg.num_primary_rays are padding, never traced or counted.
+    order of megakernel._make_bounce, with the soft mode's soft_sweep,
+    soft_hit_record and two-branch draw when cfg.soft_silhouette > 0. Lanes
+    with ray_id >= cfg.num_primary_rays are padding, never traced or
+    counted.
+
+    stats: optional dict; in soft mode, stats["promoted"] and
+    stats["pass_through"] are increased by the live lanes promoted to a
+    graze and the live hits that drew the pass-through branch, and
+    stats["hard_roots"] and stats["graze_roots"] by the square roots the
+    kernel's two sweeps take for the live lanes (sweep_roots).
 
     Returns ((rr, rg, rb) float32[N] radiance, cnt int32[N] rays traced,
     topo int32[max_bounces+1, N]: the winning row for a live lane that hit,
     -1 otherwise)."""
-    planes = []
+    soft = cfg.soft_silhouette
+    planes, marks = [], []
 
     def intersector(*rays):
-        best, bt = sweep(packed, *rays, cfg.t_min)
-        rec = closest_hit_record(packed, best, bt, *rays)
+        if soft:
+            best, bt, near = soft_sweep(packed, *rays, cfg.t_min, soft)
+            rec = soft_hit_record(packed, best, bt, *rays, cfg.t_min, soft)
+        else:
+            best, bt = sweep(packed, *rays, cfg.t_min)
+            rec = closest_hit_record(packed, best, bt, *rays)
+        if soft and stats is not None:
+            u = rng_mod.uniform01(cfg.seed, ray_id, len(planes),
+                                  rng_mod.Slots.SILHOUETTE_P)
+            marks.append((near, rec.hit & ~(u < rec.cover),
+                          *sweep_roots(packed, *rays, cfg.t_min)))
         planes.append(torch.where(rec.hit, best.to(torch.int32), -1))
         return rec
 
     rad, cnt = trace(None, ox, oy, oz, dx, dy, dz, cfg.seed, ray_id,
                      max_bounces=cfg.max_bounces, t_min=cfg.t_min,
                      active=ray_id < cfg.num_primary_rays,
-                     intersector=intersector)
+                     intersector=intersector, soft_eps=soft)
     topo = torch.full((cfg.max_bounces + 1, ox.shape[0]), -1,
                       dtype=torch.int32, device=ox.device)
     # A lane is alive at bounce b exactly when it was counted more than b
     # times: it dies once and stays dead.
     for b, plane in enumerate(planes):
         topo[b] = torch.where(cnt > b, plane, -1)
+    for b, mark in enumerate(marks):
+        for key, m in zip(("promoted", "pass_through", "hard_roots",
+                           "graze_roots"), mark):
+            stats[key] = stats.get(key, 0) + int(torch.where(
+                cnt > b, m, 0).sum(dtype=torch.int64))
     return rad, cnt, topo
+
+
+def sweep_roots(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, t_min: float):
+    """Per ray, the square roots the soft kernel's two sweeps take
+    (csrc/path_math.cuh sweep and graze_sweep): (rows whose discriminant
+    is not negative, rows passing the graze sweep's cheap tests) as
+    int64[N] each. For the kernel's operation count only."""
+    _, bt = sweep(packed, ox, oy, oz, dx, dy, dz, t_min)
+    cox = packed[0] - ox[:, None]
+    coy = packed[1] - oy[:, None]
+    coz = packed[2] - oz[:, None]
+    nb = cox * dx[:, None] + coy * dy[:, None] + coz * dz[:, None]
+    c = cox * cox + coy * coy + coz * coz - packed[3]
+    hard = (~(nb * nb - c < 0.0)).sum(dim=1)
+    graze = ((nb > t_min) & (nb < bt[:, None])
+             & (packed[3] > -1e29)).sum(dim=1)
+    return hard, graze
 
 
 def check_rays(n: int, device, **planes):
@@ -310,7 +434,7 @@ def _oneshot_kernel():
     fn = lib.rays1_oneshot_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, f, ctypes.c_uint32,
-                   p, p, p, p, p, p, p]
+                   f, f, f, p, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -335,7 +459,9 @@ def _oneshot(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
     if device.type != "cuda":
         raise ValueError(f"the one-shot kernel runs on cuda or cpu, not "
                          f"{device}")
-    check_table_fits(s_count)
+    # Soft mode keeps an eighth row in shared memory: sqrt(max(rsq, 0)).
+    check_table_fits(s_count, NUM_SPHERE_ROWS + (1 if cfg.soft_silhouette
+                                                 else 0))
 
     rr, rg, rb = (torch.empty(n, dtype=torch.float32, device=device)
                   for _ in range(3))
@@ -345,11 +471,13 @@ def _oneshot(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
     total = torch.zeros(1, dtype=torch.int64, device=device)
     if n == 0:
         return (rr, rg, rb), cnt, total[0], topo
+    soft = cfg.soft_silhouette
     fn = _oneshot_kernel()
     err = fn(packed.data_ptr(), s_count, ox.data_ptr(), oy.data_ptr(),
              oz.data_ptr(), dx.data_ptr(), dy.data_ptr(), dz.data_ptr(),
              ray_id.data_ptr(), n, cfg.num_primary_rays, cfg.max_bounces,
-             cfg.t_min, cfg.seed, rr.data_ptr(), rg.data_ptr(), rb.data_ptr(),
+             cfg.t_min, cfg.seed, soft, f32(1.0 / soft) if soft else 0.0,
+             near_cut(soft), rr.data_ptr(), rg.data_ptr(), rb.data_ptr(),
              cnt.data_ptr(), None if topo is None else topo.data_ptr(),
              total.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -371,7 +499,8 @@ def trace_topology(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
     winning raw row per bounce for live lanes that hit, -1 otherwise). CUDA
     tensors launch the kernel of csrc/oneshot.cu on the current stream,
     which writes every topology plane itself; CPU tensors run
-    trace_topology_reference."""
+    trace_topology_reference. cfg.soft_silhouette > 0 runs the soft mode
+    in either; the topology then holds the promoted rows."""
     return _oneshot(packed, ox, oy, oz, dx, dy, dz, ray_id, cfg, True)
 
 
@@ -453,6 +582,7 @@ def wavefront_phase(packed: torch.Tensor, state, alive, ray_id, cnt, slots,
     tensors launch the kernel of csrc/phase.cu on the current stream (none
     when M is 0); CPU tensors run wavefront_phase_reference."""
     global PHASE_LAUNCHES
+    hard_only(cfg, "wavefront")
     device = packed.device
     n = ray_id.shape[0] if ray_id.dim() == 1 else -1
     s_count = packed.shape[1] if packed.dim() == 2 else -1

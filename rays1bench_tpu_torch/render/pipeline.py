@@ -4,7 +4,10 @@ src/latest/rayweek1.cpp:722-782). With its defaults this is the port's CPU
 oracle: exact float albedos, the plain closest-hit sweep, no kernel. With
 cfg.pallas_intersect each bounce's winning row comes from the closest-hit
 index kernel (kernels/intersect_index.py; its plain version on the CPU) and
-the hit record is rebuilt from it: the engine="pipeline" gradient.
+the hit record is rebuilt from it: the engine="pipeline" gradient. With
+cfg.soft_silhouette both sweeps are followed by the near-miss promotion in
+plain torch (render/intersect._near_miss_index), as the JAX pipeline runs it
+in XLA outside its index kernel; the topology replay does not promote.
 
 Every primary ray has the global id ray_id = (y * W + x) * spp + s, from
 which pixel, film jitter, lens sample and every bounce's draws follow
@@ -82,7 +85,8 @@ def render_image(spheres_soa: SphereSOA, camera: Camera, cfg: RenderConfig,
                                     max_bounces=cfg.max_bounces,
                                     t_min=cfg.t_min, t_max=cfg.t_max,
                                     early_exit=cfg.early_exit, topology=topo,
-                                    hit_index=hit_index, remat=remat)
+                                    hit_index=hit_index, remat=remat,
+                                    soft_eps=cfg.soft_silhouette)
         rad.append(torch.stack([rr, rg, rb], dim=-1))
         num_rays += count.sum(dtype=torch.int64)
     image = torch.cat(rad).reshape(cfg.height, cfg.width, cfg.spp, 3).mean(dim=2)

@@ -67,17 +67,14 @@ def test_config_fields_and_presets_match():
     ("soft_silhouette", 0.005, "soft renderer"),
 ])
 def test_config_refuses_unported_modes(field, value, mode):
-    if field == "pallas_intersect":   # ported: accepted and kept
-        assert getattr(tconfig.RenderConfig(**{field: value}), field) == value
-        cfg = tconfig.PRESETS["quick"].replace(**{field: value})
-        assert getattr(cfg, field) == value
-        assert cfg == tconfig.get_config("quick", **{field: value})
-        return
-    with pytest.raises(ValueError, match=mode):
-        tconfig.RenderConfig(**{field: value})
-    with pytest.raises(ValueError, match=mode):
-        tconfig.PRESETS["quick"].replace(**{field: value})
-    tconfig.RenderConfig(pallas_intersect=False)  # the plain sweep itself
+    """Both modes are ported now (the index kernel, the soft renderer): a
+    config that asks for `mode` is accepted and keeps the value."""
+    assert getattr(tconfig.RenderConfig(**{field: value}), field) == value
+    cfg = tconfig.PRESETS["quick"].replace(**{field: value})
+    assert getattr(cfg, field) == value
+    assert cfg == tconfig.get_config("quick", **{field: value})
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jconfig.PRESETS["quick"].replace(**{field: value}))
 
 
 def test_pcg_hash_bit_exact():

@@ -2,7 +2,11 @@
 respawn, topology, one-shot, index and phase kernels bit for bit, the fused
 backward within GRAD_TOL of backward_reference (float atomics sum its
 columns in an order that changes from run to run; its adjoint is derived by
-hand and orders its operations otherwise than autograd).
+hand and orders its operations otherwise than autograd). The topology
+kernel and the fused backward in their soft-silhouette mode too; there the
+raw inv_radius column is rounding noise (the soft normal is renormalized,
+so its exact derivative is 0) and the check chains the columns onto the
+scene's own through scene/spheres.prepare instead.
 
 Needs an NVIDIA GPU and nvcc: every test is marked `cuda` and skips without
 a CUDA device (the kernels have no CPU mode). This file imports no jax, so it
@@ -10,6 +14,8 @@ runs on a machine without it:
 
     python -m pytest -o addopts= --noconftest tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -23,7 +29,7 @@ from rays1bench_tpu_torch.kernels.pipeline import (prepare_trimmed, ray_coords,
                                                    render_image_megakernel)
 from rays1bench_tpu_torch.render.pipeline import primary_rays, render_image
 from rays1bench_tpu_torch.scene import builders
-from rays1bench_tpu_torch.scene.soa_spheres import SphereSOABuilder
+from rays1bench_tpu_torch.scene.soa_spheres import COLUMNS, SphereSOABuilder
 from rays1bench_tpu_torch.scene.spheres import prepare
 
 torch.set_num_threads(1)
@@ -89,9 +95,9 @@ def test_table_above_shared_memory_is_refused(cuda):
         megakernel.trace_respawn(packed, cam, cfg)
 
 
-def grad_inputs(scene_name, w, h, spp, mb, pad, device):
+def grad_inputs(scene_name, w, h, spp, mb, pad, device, soft=0.0):
     cfg = RenderConfig(width=w, height=h, spp=spp, max_bounces=mb, seed=5,
-                       early_exit=False)
+                       early_exit=False, soft_silhouette=soft)
     scene = builders.SCENES[scene_name](cfg.aspect, pad_multiple=pad,
                                         device=device)
     ray_id, x, y = ray_coords(cfg, device)
@@ -295,3 +301,93 @@ def test_pipeline_gradient_same_with_index_kernel(cuda):
     assert torch.equal(out[0][0], out[1][0]) and out[0][1] == out[1][1]
     for k, g in out[0][3].items():
         assert torch.equal(g, out[1][3][k]), k
+
+
+SOFT_CASES = [  # scene, width, height, spp, max_bounces, pad_multiple
+    ("small", 64, 32, 2, 4, 8),      # hollow glass
+    ("small", 50, 30, 2, 4, 8),      # ragged last block
+    ("medium", 48, 30, 2, 10, 8),
+]
+
+
+@pytest.mark.parametrize("case", SOFT_CASES)
+def test_soft_topology_kernel_equals_plain_version(cuda, case):
+    cfg, _, prep, rays, ray_id = grad_inputs(*case, cuda, soft=0.005)
+    packed = megakernel.pack_spheres(prep)
+    before = megakernel.ONESHOT_LAUNCHES
+    rad, cnt, total, topo = megakernel.trace_topology(packed, *rays, ray_id,
+                                                      cfg)
+    torch.cuda.synchronize()
+    assert megakernel.ONESHOT_LAUNCHES == before + 1
+    stats = {}
+    ref_rad, ref_cnt, ref_topo = megakernel.trace_topology_reference(
+        packed, *rays, ray_id, cfg, stats=stats)
+    assert torch.equal(topo, ref_topo) and torch.equal(cnt, ref_cnt)
+    assert all(torch.equal(a, b) for a, b in zip(rad, ref_rad))
+    assert int(total) == int(cnt.sum())
+    assert stats["promoted"] > 0 and stats["pass_through"] > 0
+    rad1, cnt1, _ = megakernel.trace_oneshot(packed, *rays, ray_id, cfg)
+    assert torch.equal(cnt1, cnt) and all(torch.equal(a, b)
+                                          for a, b in zip(rad1, rad))
+
+
+def soa_grads(soa, grads):
+    """Chain GRAD_ROWS cotangents onto the scene's float columns."""
+    floats = [c for c in COLUMNS if c != "mat_type"]
+    soa = dataclasses.replace(soa, **{
+        c: getattr(soa, c).detach().clone().requires_grad_(True)
+        for c in floats})
+    prep = prepare(soa)
+    torch.autograd.backward(
+        [getattr(prep, n) for n in mega_backward.GRAD_ROWS], list(grads))
+    return [getattr(soa, c).grad for c in floats]
+
+
+@pytest.mark.parametrize("case", SOFT_CASES)
+def test_soft_fused_backward_matches_backward_reference(cuda, case):
+    cfg, scene, prep, rays, ray_id = grad_inputs(*case, cuda, soft=0.005)
+    _, _, _, topo = megakernel.trace_topology(megakernel.pack_spheres(prep),
+                                              *rays, ray_id, cfg)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    cts = [torch.rand(ray_id.numel(), generator=g, device=cuda) - 0.5
+           for _ in range(3)]
+    before = mega_backward.LAUNCHES
+    grads, ray_cts = mega_backward.backward(prep, *rays, ray_id, *cts, topo,
+                                            cfg)
+    torch.cuda.synchronize()
+    assert mega_backward.LAUNCHES == before + 1
+    ref, ref_cts = mega_backward.backward_reference(prep, *rays, ray_id,
+                                                    *cts, topo, cfg)
+    noise = mega_backward.GRAD_ROWS.index("inv_radius")
+    pairs = ([(grads[k], ref[k]) for k in range(len(ref)) if k != noise]
+             + list(zip(ray_cts, ref_cts))
+             + list(zip(soa_grads(scene.spheres, grads),
+                        soa_grads(scene.spheres, ref))))
+    for a, b in pairs:
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= GRAD_TOL * float(b.abs().max())
+    if grads.shape[1] > scene.n_real:
+        assert float(grads[:, scene.n_real:].abs().max()) == 0.0
+
+
+def test_soft_fit_launches_each_kernel_twice_a_step(cuda):
+    """The U-statistic loss renders twice: a soft step launches the
+    topology kernel and the fused backward twice each."""
+    cfg = RenderConfig(width=64, height=32, spp=2, max_bounces=5,
+                       early_exit=False, seed=3, soft_silhouette=0.005)
+    scene = builders.create_small_scene(cfg.aspect, pad_multiple=8)
+    camera = scene.camera.build()
+    with torch.no_grad():
+        target = inverse.render_for_loss(scene.spheres, camera, cfg)
+    start = inverse.with_params(
+        scene.spheres, {"center_x": scene.spheres.center_x + 0.03})
+    a, b = megakernel.ONESHOT_LAUNCHES, mega_backward.LAUNCHES
+    fitted, losses = inverse.fit_scene(
+        start, camera, target, cfg,
+        inverse.InverseConfig(learning_rate=2e-3, steps=3,
+                              optimize=("center_x", "center_y", "radius")),
+        engine="mega")
+    assert megakernel.ONESHOT_LAUNCHES == a + 6
+    assert mega_backward.LAUNCHES == b + 6
+    assert bool(torch.isfinite(torch.tensor(losses)).all())
+    assert fitted.center_x.is_cuda

@@ -309,10 +309,11 @@ def test_entry_points_run_on_the_card_unless_asked():
 
 
 def test_unported_modes_raise_with_their_roadmap_item():
-    """A mesh, fit_camera and soft silhouettes raise. engine="pipeline" is
-    ported: it renders the plain pipeline with the index sweep. A scene
-    the fused backward cannot take (51 bounces) now goes to the pipeline
-    under auto; an explicit "mega" still raises there."""
+    """A mesh and fit_camera raise. engine="pipeline" is ported: it renders
+    the plain pipeline with the index sweep. A scene the fused backward
+    cannot take (51 bounces) now goes to the pipeline under auto; an
+    explicit "mega" still raises there. Soft silhouettes are ported: the
+    config takes them and engine="mega" renders them."""
     cfg = RenderConfig(width=8, height=4, spp=1, max_bounces=2)
     scene = tbuilders.create_small_scene(2.0, pad_multiple=8, device="cpu")
     cam = scene.camera.build("cpu")
@@ -333,8 +334,11 @@ def test_unported_modes_raise_with_their_roadmap_item():
                        want)
     with pytest.raises(ValueError, match="supported"):
         inverse.render_for_loss(scene.spheres, cam, deep, engine="mega")
-    with pytest.raises(ValueError, match="soft"):
-        cfg.replace(soft_silhouette=0.01)
+    soft = cfg.replace(soft_silhouette=0.01)
+    assert soft.soft_silhouette == 0.01
+    want, _ = render_image_mega(scene.spheres, cam, inverse._grad_cfg(soft))
+    img = inverse.render_for_loss(scene.spheres, cam, soft, engine="mega")
+    assert torch.equal(img, want) and torch.isfinite(img).all()
 
 
 def test_bench_grad_needs_a_card():
@@ -343,3 +347,22 @@ def test_bench_grad_needs_a_card():
     from rays1bench_tpu_torch.bench import grad as bench_grad
     with pytest.raises(SystemExit, match="CUDA"):
         bench_grad.main(["--scene", "small"])
+
+
+def test_bench_grad_names_the_kernels_in_a_trace():
+    """The profiler split finds the port's kernels by name, the template
+    instantiations of the hard and soft modes included, and not torch's."""
+    from rays1bench_tpu_torch.bench.grad import KERNELS, is_kernel
+    events = {
+        "oneshot": "void (anonymous namespace)::oneshot_kernel<true>(float "
+                   "const*, int, float const*",
+        "mega_backward": "void (anonymous namespace)::backward_kernel<false>"
+                         "(float const*, int, float const",
+        "intersect_index": "(anonymous namespace)::index_kernel(float const*,"
+                           " int, float const*)"}
+    for kernel, function in KERNELS.items():
+        for other, name in events.items():
+            assert is_kernel(name, function) == (other == kernel)
+    torch_own = ("void at::native::indexing_backward_kernel<float, 4>(long "
+                 "const*)")
+    assert not any(is_kernel(torch_own, f) for f in KERNELS.values())
