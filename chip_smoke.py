@@ -22,6 +22,12 @@
    path's), and the plain version on the card for a few hundred of its
    pixels (a whole 16x8 block, the last column, the top row, the corners
    and pixels spread over the frame): counts equal, sums within SUM_TOL.
+   Then the lane occupancy of the respawn kernel's schedule (occupancy):
+   on a 160x90 crop of the headline, a loop nest that starts a warp's next
+   sample only when its 16x2 pixels all ended theirs (the plain version,
+   one sample at a time), against the flat loop's 8x4-pixel warps, which
+   run as long as their busiest pixel, on the crop and on the headline
+   launch's own per-pixel counts.
 7. The gradient kernels against their plain versions on the card, on the
    small scene at 64x32 @ 2 spp @ 3 and 5 b (hollow glass, fuzzed metal,
    dielectric) and the medium and large scenes at 160x90 @ 4 spp @ 10 b:
@@ -180,6 +186,12 @@ RAY_TOL = 3e-3                 # tests/test_pipeline.py:88
 GOLDEN_TOL_MEAN, GOLDEN_TOL_MAX, BLOCK = 1.25, 3.5, 16   # tools/verify_golden.py
 HEADLINE = RenderConfig(width=1280, height=720, spp=250, max_bounces=50)
 PIXEL_SEED = 7
+# Lane occupancy (occupancy): the pixels a warp covers under a loop nest
+# over samples then bounces on 16x8-pixel blocks, and under the respawn
+# kernel's flat loop; a 160x90 crop of the headline, aligned to both.
+NESTED_WARP = (16, 2)
+FLAT_WARP = (8, 4)
+OCC_CROP = (560, 316, 160, 90)
 
 # The fused backward against backward_reference: both float32, but the
 # kernel adds its column sums with atomics in an order that changes from
@@ -872,7 +884,8 @@ def headline_vs_plain(img, rays):
     """Kernel against plain version at the headline's shape. One more kernel
     launch at 1280x720 @ 250 spp @ 50 b must reproduce the main path's image
     and ray count; then the plain version traces a few hundred of its pixels
-    on the card. Returns (max abs sum gap, kernel ms, plain ms, pixels)."""
+    on the card. Returns (max abs sum gap, kernel ms, plain ms, pixels,
+    the launch's per-pixel counts)."""
     cfg = HEADLINE
     packed, cam = packed_inputs("large", cfg)
     (k_rad, k_cnt, k_total), k_ms = cuda_ms(
@@ -896,7 +909,62 @@ def headline_vs_plain(img, rays):
           f"pixels with a count gap {cnt_diff}, sum channels differing "
           f"{n_diff}, max abs sum gap {err:.3e} | kernel {k_ms:.1f} ms for "
           f"the frame, plain {p_ms:.1f} ms for these pixels", flush=True)
-    return err, k_ms, p_ms, pid.numel()
+    return err, k_ms, p_ms, pid.numel(), k_cnt
+
+
+def warp_occupancy(cnt, tile):
+    """Lane occupancy of a warp schedule, from per-pixel segment counts.
+
+    cnt: int tensor (n, H, W), n runs of the frame (or crop) whose warps
+    each wait for their slowest lane: one sample each under a loop nest
+    that starts a warp's next sample only when all its lanes end theirs,
+    or the whole span under the flat loop. tile: (width, height) of the
+    pixels one warp covers, aligned to the frame's origin. Returns
+    sum cnt / sum over warps and runs of (lanes x max lane count); a warp
+    cut by the edge counts only its lanes inside."""
+    n, h, w = cnt.shape
+    tw, th = tile
+    c = torch.nn.functional.pad(cnt.double(), (0, -w % tw, 0, -h % th),
+                                value=-1.0)
+    c = c.reshape(n, c.shape[1] // th, th, c.shape[2] // tw, tw)
+    c = c.permute(0, 1, 3, 2, 4).reshape(n, -1, tw * th)
+    paid = (c >= 0).sum(-1) * c.max(-1).values.clamp_min(0.0)
+    return float(cnt.sum(dtype=torch.float64)) / float(paid.sum())
+
+
+def occupancy(frame_cnt):
+    """Lane occupancy of a loop nest (a sample at a time,
+    NESTED_WARP) on the OCC_CROP crop of the headline, from the plain
+    version's per-sample counts, against the flat loop's (FLAT_WARP) on
+    the same crop and on the whole headline launch's counts frame_cnt."""
+    cfg = HEADLINE
+    packed, cam = packed_inputs("large", cfg)
+    x0, y0, w, h = OCC_CROP
+    yy, xx = torch.meshgrid(torch.arange(y0, y0 + h, device="cuda"),
+                            torch.arange(x0, x0 + w, device="cuda"),
+                            indexing="ij")
+    pid = (yy * cfg.width + xx).reshape(-1).to(torch.int32)
+    x, y = xx.reshape(-1).float(), yy.reshape(-1).float()
+    t0 = time.perf_counter()
+    per = torch.stack([megakernel.trace_respawn_reference(
+        packed, cam, pid, x, y, cfg, (s, s + 1))[1].reshape(h, w)
+        for s in range(cfg.spp)])
+    secs = time.perf_counter() - t0
+    occ = {"nested_crop": warp_occupancy(per, NESTED_WARP),
+           "nested_crop_8x4": warp_occupancy(per, FLAT_WARP),
+           "flat_crop": warp_occupancy(per.sum(0, keepdim=True), FLAT_WARP),
+           "flat_frame": warp_occupancy(
+               frame_cnt.reshape(1, cfg.height, cfg.width), FLAT_WARP)}
+    print(f"[occupancy] headline crop {w}x{h} at ({x0}, {y0}), "
+          f"{cfg.spp} samples one at a time through the plain version "
+          f"({secs:.1f} s), {int(per.sum())} segments: loop nest on "
+          f"{NESTED_WARP[0]}x{NESTED_WARP[1]} warps "
+          f"{occ['nested_crop']:.4f} (on {FLAT_WARP[0]}x{FLAT_WARP[1]} "
+          f"{occ['nested_crop_8x4']:.4f}); flat loop on "
+          f"{FLAT_WARP[0]}x{FLAT_WARP[1]} warps {occ['flat_crop']:.4f}; "
+          f"flat loop over the whole headline launch "
+          f"{occ['flat_frame']:.4f}", flush=True)
+    return occ
 
 
 def max_gap(k, p):
@@ -1390,7 +1458,8 @@ def main():
     _, k_ms, p_ms, r_bound = results[0]
 
     launches, img, rays = headline()
-    head_err, _, _, _ = headline_vs_plain(img, rays)
+    head_err, _, _, _, head_cnt = headline_vs_plain(img, rays)
+    occupancy(head_cnt)
     max_err = max([r[0] for r in results] + [head_err])
 
     grad = [grad_case(*case) for case in GRAD_CASES]

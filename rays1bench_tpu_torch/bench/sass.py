@@ -3,12 +3,18 @@
     python -m rays1bench_tpu_torch.bench.sass
 
 Builds the kernels (kernels/build.py), disassembles each library with
-`cuobjdump -sass`, and prints for each kernel its instruction total and,
-for every loop (a branch back to an earlier address, with the instructions
-from its target to it), the loop's length and its counts of FP32 adds and
-multiplies (FADD, FMUL), fused multiply-adds (FFMA), special-function ops
-(MUFU), shared loads (LDS) and branches (BRA). The closest-hit sweep is the
-loop with four LDS per unrolled sphere. The full listings go beside the
+`cuobjdump -sass`, and prints for each kernel its instruction total, the
+distinct opcodes of its shared atomics (ATOMS.ADD... is a native add,
+ATOMS.CAST.SPIN a compare-and-swap loop) and, for every loop (a branch back
+to an earlier address, with the instructions from its target to it), the
+loop's length and its counts of FP32 adds and multiplies (FADD, FMUL),
+fused multiply-adds (FFMA), special-function ops (MUFU), scalar shared
+loads (LDS, LDS.64), 128-bit shared loads (LDS.128), shared atomics
+(ATOMS), local-memory stores and loads (STL, LDL: a per-thread array or a
+spill) and branches (BRA). The closest-hit sweep is the loop with one
+LDS.128 per unrolled sphere in the respawn kernel (the interleaved
+float4 {cx, cy, cz, radius_sq} rows), and with four LDS per sphere in
+the one-shot, phase and index kernels. The full listings go beside the
 libraries, as <library>.sass. Needs the CUDA toolkit.
 """
 
@@ -21,7 +27,8 @@ import subprocess
 
 from rays1bench_tpu_torch.kernels import build
 
-CLASSES = ("FADD", "FMUL", "FFMA", "MUFU", "LDS", "BRA")
+CLASSES = ("FADD", "FMUL", "FFMA", "MUFU", "LDS", "LDS.128", "ATOMS", "STL",
+           "LDL", "BRA")
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                    r"([A-Z][A-Z0-9_.]*)([^;]*);")
 _FUNC = re.compile(r"Function : (\S+)")
@@ -41,6 +48,14 @@ def parse(text):
     return funcs
 
 
+def op_class(op: str):
+    """The CLASSES entry an opcode counts under, or None."""
+    base = op.split(".")[0]
+    if base == "LDS" and ".128" in op:
+        return "LDS.128"
+    return base if base in CLASSES else None
+
+
 def loops(instrs):
     """[(start, end, Counter of opcode classes, length)] for each backward
     branch."""
@@ -50,8 +65,7 @@ def loops(instrs):
         if op.startswith("BRA") and m and int(m.group(1), 16) < addr:
             lo = int(m.group(1), 16)
             body = [o for a, o, _ in instrs if lo <= a <= addr]
-            count = collections.Counter(
-                c for o in body for c in CLASSES if o.split(".")[0] == c)
+            count = collections.Counter(op_class(o) for o in body)
             out.append((lo, addr, count, len(body)))
     return out
 
@@ -64,7 +78,10 @@ def main():
                               check=True).stdout
         lib.with_suffix(".sass").write_text(text)
         for func, instrs in parse(text).items():
-            print(f"[sass] {lib.name} {func}: {len(instrs)} instructions",
+            atoms = collections.Counter(o for _, o, _ in instrs
+                                        if o.startswith("ATOMS"))
+            print(f"[sass] {lib.name} {func}: {len(instrs)} instructions"
+                  + (f"; shared atomics {dict(atoms)}" if atoms else ""),
                   flush=True)
             for lo, hi, count, n in loops(instrs):
                 counts = " ".join(f"{c} {count[c]}" for c in CLASSES)

@@ -421,4 +421,145 @@ __device__ __forceinline__ void soft_bounce_adj(
   }
 }
 
+// ---- the fused backward's lane (mega_backward.cu) --------------------------
+
+// One primary ray of the fixed-topology replay, forward then reverse
+// (mega_backward.backward_reference for one ray).
+//
+// Forward: the ray re-advances (o, d, a) bounce by bounce through its
+// recorded rows topo_i[b * N] with the replay's exact math and checkpoints
+// each live bounce's 9 floats, with the continue, dielectric-mirror and
+// (kSoft) take bits. kCap is the checkpoint array's depth cap: max_bounces
+// must not exceed it. alive: the ray is not padding.
+//
+// Reverse: steps = steps_of(live) iterations, live the ray's live bounces;
+// iteration k pulls the cotangents back through bounce live - 1 - k, or
+// does nothing once that is below 0. Each iteration ends with
+// acc(has, j, gcol): has is true where the bounce hit row j and continued,
+// and gcol then holds the row's ten GRAD_ROWS column cotangents (zeros
+// otherwise). On the card steps_of is the warp's largest live, so that
+// every lane of a warp calls acc together and it can sum over the warp; on
+// the host it is the identity. On exit go, gd hold the cotangents of the
+// primary ray's origin and direction; crad is its radiance cotangent.
+template <bool kSoft, int kCap, class StepsOf, class Acc>
+__device__ __forceinline__ void backward_ray(
+    const float* tab, int S, const int* topo_i, int N, bool alive,
+    uint32_t rid, const float o0[3], const float d0[3], const float crad[3],
+    int max_bounces, float t_min, uint32_t seed, float inv_eps, float go[3],
+    float gd[3], StepsOf steps_of, Acc acc) {
+  float o[3] = {o0[0], o0[1], o0[2]};
+  float d[3] = {d0[0], d0[1], d0[2]};
+  float a[3] = {1.0f, 1.0f, 1.0f};
+  float st[kCap + 1][9];
+  uint64_t cont_bits = 0, mirror_bits = 0, take_bits = 0;
+  int live = 0;
+
+  // ---- forward replay: advance and checkpoint -----------------------------
+  for (int b = 0; b <= max_bounces && alive; ++b) {
+    for (int k = 0; k < 3; ++k) {
+      st[b][k] = o[k];
+      st[b][3 + k] = d[k];
+      st[b][6 + k] = a[k];
+    }
+    live = b + 1;
+    const int j = topo_i[(size_t)b * N];
+    bool cont = false;
+    if (j >= 0 && kSoft) {
+      const SoftHit sh = replay_soft_hit(tab, S, j, t_min, inv_eps, o[0],
+                                         o[1], o[2], d[0], d[1], d[2]);
+      float s3[3];
+      bool mirror = false;
+      bool ok = scatter(sh.h, d[0], d[1], d[2], seed, rid, (uint32_t)b,
+                        s3[0], s3[1], s3[2], &mirror);
+      const bool take =
+          uniform01(seed, rid, (uint32_t)b, kSlotSilhouetteP) < sh.cover;
+      float m[3], h3[3];
+      if (take) {
+        const float w = bounce_weight(sh.cover);
+        m[0] = sh.h.albedo_x * w;
+        m[1] = sh.h.albedo_y * w;
+        m[2] = sh.h.albedo_z * w;
+        h3[0] = sh.h.px;
+        h3[1] = sh.h.py;
+        h3[2] = sh.h.pz;
+      } else {
+        m[0] = m[1] = m[2] = pass_weight(sh.cover);
+        for (int k = 0; k < 3; ++k) s3[k] = d[k];
+        h3[0] = sh.p2x;
+        h3[1] = sh.p2y;
+        h3[2] = sh.p2z;
+        ok = true;
+      }
+      cont = ok && b < max_bounces;
+      if (cont) {
+        cont_bits |= 1ull << b;
+        if (take) take_bits |= 1ull << b;
+        if (take && mirror) mirror_bits |= 1ull << b;
+        for (int k = 0; k < 3; ++k) {
+          o[k] = h3[k];
+          d[k] = s3[k];
+          a[k] = a[k] * m[k];
+        }
+      }
+    } else if (j >= 0) {
+      const Hit h = replay_hit(tab, S, j, t_min, o[0], o[1], o[2], d[0], d[1],
+                               d[2]);
+      float sx, sy, sz;
+      bool mirror = false;
+      const bool ok = scatter(h, d[0], d[1], d[2], seed, rid, (uint32_t)b,
+                              sx, sy, sz, &mirror);
+      cont = ok && b < max_bounces;
+      if (cont) {
+        cont_bits |= 1ull << b;
+        if (mirror) mirror_bits |= 1ull << b;
+        o[0] = h.px;
+        o[1] = h.py;
+        o[2] = h.pz;
+        d[0] = sx;
+        d[1] = sy;
+        d[2] = sz;
+        a[0] = a[0] * h.albedo_x;
+        a[1] = a[1] * h.albedo_y;
+        a[2] = a[2] * h.albedo_z;
+      }
+    }
+    alive = cont;
+  }
+
+  // ---- reverse --------------------------------------------------------------
+  for (int k = 0; k < 3; ++k) go[k] = gd[k] = 0.0f;
+  float ga[3] = {0.0f, 0.0f, 0.0f};
+  const int steps = steps_of(live);
+  for (int k = 0; k < steps; ++k) {
+    const int b = live - 1 - k;
+    float gcol[kNumGrad] = {};
+    int j = -1;
+    bool has = false;
+    if (b >= 0) {
+      j = topo_i[(size_t)b * N];
+      const float so[3] = {st[b][0], st[b][1], st[b][2]};
+      const float sd[3] = {st[b][3], st[b][4], st[b][5]};
+      const float sa[3] = {st[b][6], st[b][7], st[b][8]};
+      if (j < 0) {
+        // Miss: radiance += a * sky(d); the state passes through.
+        sky_adj(sa, sd[1], crad, ga, gd[1]);
+      } else if (cont_bits >> b & 1ull) {
+        has = true;
+        const bool mirror = (mirror_bits >> b & 1ull) != 0;
+        if (kSoft) {
+          soft_bounce_adj(tab, S, j, t_min, inv_eps, so, sd, sa,
+                          (take_bits >> b & 1ull) != 0, mirror, seed, rid,
+                          (uint32_t)b, go, gd, ga, gcol);
+        } else {
+          hit_bounce_adj(tab, S, j, t_min, so, sd, sa, mirror, seed, rid,
+                         (uint32_t)b, go, gd, ga, gcol);
+        }
+      }
+      // A hit that did not continue (absorbed, depth cap) adds no radiance
+      // and leaves the state as it was: its cotangents pass through.
+    }
+    acc(has, j, gcol);
+  }
+}
+
 }  // namespace r1b

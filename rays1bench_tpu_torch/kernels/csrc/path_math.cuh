@@ -1,7 +1,9 @@
 // Per-ray math shared by the port's path-tracing kernels: the counter-hash
 // RNG lattice, the samplers, thin-lens raygen, the dense closest-hit sweep
-// over the packed sphere table, its unpack, the soft-silhouette mode's graze
-// sweep and soft record, material scatter and the sky.
+// over the packed sphere table (and over the respawn kernel's broadcast
+// layout), its unpack, the soft-silhouette mode's graze sweep and soft
+// record, material scatter, the sky, and the respawn kernel's whole lane
+// (respawn_pixel).
 //
 // Each function computes exactly what its plain PyTorch counterpart computes
 // (rays1bench_tpu_torch/core/rng.py, core/vecmath.py, render/camera.py,
@@ -195,30 +197,62 @@ __device__ __forceinline__ int sweep(const float* sph, int S, float t_min,
   return best;
 }
 
+// The same sweep over the respawn kernel's broadcast layout: the hot rows
+// interleaved as float4 {cx, cy, cz, radius_sq}, one 128-bit shared load per
+// sphere that every lane of a warp reads at once, unrolled kSweepUnroll
+// times. The same float operations in the same order as `sweep`, so the
+// same winner and root bit for bit. The one-shot, phase and index kernels
+// keep `sweep` over the row-major table.
+constexpr int kSweepUnroll = 8;
+
+__device__ __forceinline__ int sweep4(const float4* hot, int S, float t_min,
+                                      float ox, float oy, float oz, float dx,
+                                      float dy, float dz, float& bt) {
+  bt = __int_as_float(0x7f800000);  // +inf
+  int best = -1;
+#pragma unroll kSweepUnroll
+  for (int s = 0; s < S; ++s) {
+    const float4 h = hot[s];
+    float cox = h.x - ox;
+    float coy = h.y - oy;
+    float coz = h.z - oz;
+    float nb = cox * dx + coy * dy + coz * dz;
+    float c = cox * cox + coy * coy + coz * coz - h.w;
+    float disc = nb * nb - c;
+    if (disc < 0.0f) continue;
+    float sq = sqrtf(disc);
+    float t1 = nb - sq;
+    float t2 = nb + sq;
+    float t = t1 > t_min ? t1 : t2;
+    if (t < bt && t > t_min) {
+      bt = t;
+      best = s;
+    }
+  }
+  return best;
+}
+
+// Row s of the row-major (7, S) table into the broadcast layout: hot[s],
+// and inv_radius, packed albedo and mt*32 + param at pay[k * S + s].
+__device__ __forceinline__ void stage_row(const float* sph, int S, int s,
+                                          float4* hot, float* pay) {
+  hot[s].x = sph[kCX * S + s];
+  hot[s].y = sph[kCY * S + s];
+  hot[s].z = sph[kCZ * S + s];
+  hot[s].w = sph[kRSQ * S + s];
+  for (int k = 0; k < 3; ++k) pay[k * S + s] = sph[(kINVR + k) * S + s];
+}
+
 struct Hit {
   float px, py, pz, nx, ny, nz;
   int mat_type;
   float albedo_x, albedo_y, albedo_z, fuzz, ref_idx;
 };
 
-// Unpack the winner's payload (megakernel._closest_hit_record): hit point,
-// normal (p - c) * inv_radius, albedo decoded from r*65536 + g*256 + b times
-// float32(1/255), and mt*32 + param split by floor.
-__device__ __forceinline__ Hit unpack_hit(const float* sph, int S, int best,
-                                          float t, float ox, float oy,
-                                          float oz, float dx, float dy,
-                                          float dz) {
-  Hit h;
-  float cx = sph[kCX * S + best], cy = sph[kCY * S + best],
-        cz = sph[kCZ * S + best];
-  float ivr = sph[kINVR * S + best];
-  float albp = sph[kALB * S + best], mtp = sph[kMTP * S + best];
-  h.px = ox + t * dx;
-  h.py = oy + t * dy;
-  h.pz = oz + t * dz;
-  h.nx = (h.px - cx) * ivr;
-  h.ny = (h.py - cy) * ivr;
-  h.nz = (h.pz - cz) * ivr;
+// Decode the packed payload into h's material fields: albedo from
+// r*65536 + g*256 + b times float32(1/255), mt*32 + param split by floor.
+__device__ __forceinline__ void decode_material(float albp, float mtp,
+                                                Hit& h) {
   float mt_f = floorf(mtp * (1.0f / 32.0f));
   h.mat_type = (int)mt_f;
   float mparam = mtp - mt_f * 32.0f;
@@ -232,7 +266,46 @@ __device__ __forceinline__ Hit unpack_hit(const float* sph, int S, int best,
   h.albedo_z = a_b * inv255;
   h.fuzz = mparam;
   h.ref_idx = h.mat_type == 2 ? mparam : 1.0f;
+}
+
+// The winner's hit record (megakernel._closest_hit_record): hit point,
+// normal (p - c) * inv_radius and the decoded payload.
+__device__ __forceinline__ Hit decode_hit(float cx, float cy, float cz,
+                                          float ivr, float albp, float mtp,
+                                          float t, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz) {
+  Hit h;
+  h.px = ox + t * dx;
+  h.py = oy + t * dy;
+  h.pz = oz + t * dz;
+  h.nx = (h.px - cx) * ivr;
+  h.ny = (h.py - cy) * ivr;
+  h.nz = (h.pz - cz) * ivr;
+  decode_material(albp, mtp, h);
   return h;
+}
+
+// decode_hit of row `best` of the row-major table.
+__device__ __forceinline__ Hit unpack_hit(const float* sph, int S, int best,
+                                          float t, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz) {
+  return decode_hit(sph[kCX * S + best], sph[kCY * S + best],
+                    sph[kCZ * S + best], sph[kINVR * S + best],
+                    sph[kALB * S + best], sph[kMTP * S + best], t, ox, oy,
+                    oz, dx, dy, dz);
+}
+
+// decode_hit of row `best` of the broadcast layout (stage_row).
+__device__ __forceinline__ Hit unpack_hit4(const float4* hot,
+                                           const float* pay, int S, int best,
+                                           float t, float ox, float oy,
+                                           float oz, float dx, float dy,
+                                           float dz) {
+  const float4 c = hot[best];
+  return decode_hit(c.x, c.y, c.z, pay[best], pay[S + best],
+                    pay[2 * S + best], t, ox, oy, oz, dx, dy, dz);
 }
 
 // ---- soft-silhouette mode (megakernel.graze_sweep, soft_sweep,
@@ -329,20 +402,7 @@ __device__ __forceinline__ SoftHit soft_hit(const float* sph, int S, int j,
   soft_geometry(sph[kCX * S + j], sph[kCY * S + j], sph[kCZ * S + j],
                 sph[kRSQ * S + j], sph[kINVR * S + j], t_min, inv_eps, ox, oy,
                 oz, dx, dy, dz, r);
-  const float albp = sph[kALB * S + j], mtp = sph[kMTP * S + j];
-  float mt_f = floorf(mtp * (1.0f / 32.0f));
-  r.h.mat_type = (int)mt_f;
-  float mparam = mtp - mt_f * 32.0f;
-  float a_r = floorf(albp * (1.0f / 65536.0f));
-  float rem = albp - a_r * 65536.0f;
-  float a_g = floorf(rem * (1.0f / 256.0f));
-  float a_b = rem - a_g * 256.0f;
-  const float inv255 = 0x1.010102p-8f;  // float32(1/255)
-  r.h.albedo_x = a_r * inv255;
-  r.h.albedo_y = a_g * inv255;
-  r.h.albedo_z = a_b * inv255;
-  r.h.fuzz = mparam;
-  r.h.ref_idx = r.h.mat_type == 2 ? mparam : 1.0f;
+  decode_material(sph[kALB * S + j], sph[kMTP * S + j], r.h);
   return r;
 }
 
@@ -431,6 +491,91 @@ __device__ __forceinline__ void sky_color(float dy, float& r, float& g,
   r = s + t * 0.5f;
   g = s + t * 0x1.666666p-1f;  // float32(0.7)
   b = s + t * 1.0f;
+}
+
+// ---- the respawn kernel's lane (respawn.cu) --------------------------------
+
+// Primary ray of sample s of pixel pid at (xf, yf): the jittered film point
+// and the thin-lens ray of rid = pid * spp + s. Returns rid.
+__device__ __forceinline__ uint32_t pixel_ray(const float* cam, int pid,
+                                              int s, int spp, float xf,
+                                              float yf, uint32_t seed,
+                                              float inv_w, float inv_h,
+                                              float& ox, float& oy, float& oz,
+                                              float& dx, float& dy,
+                                              float& dz) {
+  const uint32_t rid = (uint32_t)(pid * spp + s);
+  float ju, jv;
+  uniform_pair16(seed, rid, kBounceRaygen, kSlotPixelJitter, ju, jv);
+  generate_ray(cam, (xf + ju) * inv_w, (yf + jv) * inv_h, seed, rid, ox, oy,
+               oz, dx, dy, dz);
+  return rid;
+}
+
+// Every sample s_lo..s_hi-1 of one pixel, as one flat loop of segments
+// (megakernel._respawn_kernel's step): count the segment, sweep, add the sky
+// on a miss, scatter, then continue while hit & ok & b < max_bounces. A path
+// that ends respawns the pixel's next sample in registers, so a lane leaves
+// the loop only when its span is used up, and a warp runs as long as its
+// busiest pixel, not as long as the sum of each sample's deepest path.
+// Each sample's radiance is added to rr, rg, rb in sample order. Returns the
+// segments traced (0 for an empty span).
+//
+// The loop body has one path to its back-edge: every lane unpacks and
+// scatters (a miss unpacks row 0 and discards it) and generates the next
+// sample's primary ray, and selects pick what the lane keeps. Written with
+// a branch around the respawn, the body has two paths back to the loop
+// head, and nvcc splits such a loop into a loop nest whose inner loop (the
+// bounces) ends in a reconvergence barrier: a warp then waits for its
+// deepest path on every sample. The extra unpack, scatter and raygen cost
+// a few percent of one 512-row sweep.
+__device__ __forceinline__ int respawn_pixel(
+    const float4* hot, const float* pay, int S, const float* cam, int pid,
+    float xf, float yf, int spp, int s_lo, int s_hi, int max_bounces,
+    float t_min, uint32_t seed, float inv_w, float inv_h, float& rr,
+    float& rg, float& rb) {
+  if (s_lo >= s_hi) return 0;
+  float ox, oy, oz, dx, dy, dz;
+  int s = s_lo;
+  uint32_t rid = pixel_ray(cam, pid, s, spp, xf, yf, seed, inv_w, inv_h, ox,
+                           oy, oz, dx, dy, dz);
+  float ar = 1.0f, ag = 1.0f, ab = 1.0f;
+  int b = 0, cnt = 0;
+  for (;;) {
+    ++cnt;
+    float bt;
+    const int best = sweep4(hot, S, t_min, ox, oy, oz, dx, dy, dz, bt);
+    // hit = bt < float32(3e38), megakernel._closest_hit_record
+    const bool hit = bt < 0x1.c363ccp+127f;
+    float skr, skg, skb;
+    sky_color(dy, skr, skg, skb);
+    rr = hit ? rr : rr + ar * skr;
+    rg = hit ? rg : rg + ag * skg;
+    rb = hit ? rb : rb + ab * skb;
+    const Hit h = unpack_hit4(hot, pay, S, hit ? best : 0, bt, ox, oy, oz,
+                              dx, dy, dz);
+    float sx, sy, sz;
+    const bool ok = scatter(h, dx, dy, dz, seed, rid, (uint32_t)b, sx, sy,
+                            sz);
+    const bool cont = hit && ok && b < max_bounces;
+    s += cont ? 0 : 1;
+    if (s >= s_hi) break;
+    float nox, noy, noz, ndx, ndy, ndz;
+    const uint32_t nrid = pixel_ray(cam, pid, s, spp, xf, yf, seed, inv_w,
+                                    inv_h, nox, noy, noz, ndx, ndy, ndz);
+    ox = cont ? h.px : nox;
+    oy = cont ? h.py : noy;
+    oz = cont ? h.pz : noz;
+    dx = cont ? sx : ndx;
+    dy = cont ? sy : ndy;
+    dz = cont ? sz : ndz;
+    ar = cont ? ar * h.albedo_x : 1.0f;
+    ag = cont ? ag * h.albedo_y : 1.0f;
+    ab = cont ? ab * h.albedo_z : 1.0f;
+    rid = cont ? rid : nrid;
+    b = cont ? b + 1 : 0;
+  }
+  return cnt;
 }
 
 }  // namespace r1b

@@ -6,24 +6,39 @@
 // per-pixel counts of traced rays. Plain version and wrapper:
 // rays1bench_tpu_torch/kernels/megakernel.py.
 //
-// Design. One thread owns one pixel and runs plain nested loops: samples
-// s_lo..s_hi-1, and for each up to max_bounces+1 segments. A TPU lane cannot
-// retire on its own, which is why the Pallas kernel respawns the next sample
-// in-register when a path ends; a CUDA thread simply moves on to its next
-// sample, so none of that machinery is needed. The per-step order is the
-// Pallas kernel's: count the step, sweep, add sky on a miss, scatter, then
-// continue while alive & hit & ok & b < max_bounces. Sample sums land in
-// sample order, as the TPU lanes add them. Threads form 16x8 pixel blocks
-// and write straight into image order (row 0 = bottom), so no slot
-// permutation exists.
+// Design. One thread owns one pixel and runs r1b::respawn_pixel
+// (path_math.cuh): one flat loop of segments, in which a path that ends
+// respawns the pixel's next sample in registers, as the Pallas kernel's
+// lanes do. Under SIMT this is what keeps a warp's lanes busy: in a loop
+// nest (for each sample, for each bounce) nvcc ends the bounce loop with a
+// reconvergence barrier, so every lane whose path ended early idles until
+// the deepest path of its 32 lanes ends, on every sample, and the warp
+// pays the sum over samples of its deepest path. The flat loop pays the
+// segments of its busiest pixel, which over 250 samples is close to the
+// mean. Its body keeps one path to the back-edge (selects, not a branch
+// around the respawn): with two, nvcc splits the loop back into the nest.
+// Lane occupancy on the headline (chip_smoke.py `occupancy`, NVIDIA H100
+// 80GB HBM3): 0.27 for the nest on 16x2-pixel warps, 0.83 for the flat
+// loop on 8x4-pixel warps.
+// Warps cover 8x4 pixels, which are more alike than a 16x2 strip; blocks
+// are 2x2 warps, 16x8 pixels, and write straight into image order (row 0
+// = bottom). Per-step order and sample-order sums are the plain
+// version's, so the frame is equal to it bit for bit.
 //
 // What bounds it: FP32 issue in the S-long closest-hit sweep (512 rows on
-// the large scene). Its sm_90a SASS is 27 instructions per sphere when the
-// discriminant is negative, 16 of them FP32 add or multiply, and 45 when the
-// IEEE square root is taken. The (7, S) sphere table is staged once per block in dynamic
-// shared memory; every thread of a warp reads the same row at the same time,
-// so each load is a broadcast and sphere loads are cheap. Tables above
-// 48 KB (the giant scene's 4096 rows are 114,688 B) need the opt-in
+// the large scene). The (7, S) table is staged once per block in dynamic
+// shared memory in the broadcast layout of r1b::stage_row: the hot rows as
+// float4 {cx, cy, cz, radius_sq}, one LDS.128 per sphere that every lane
+// of the warp reads at once, and the payload rows apart, read only by
+// r1b::unpack_hit4. r1b::sweep4 unrolls by kSweepUnroll (8: 4 and 16 were
+// slower). Its sm_90a SASS (python -m rays1bench_tpu_torch.bench.sass): 21
+// instructions per sphere test on the miss path (one LDS.128, 9 FADD, 7
+// FMUL, the compare, the branch around the root and its reconvergence),
+// 43 with the root. The frame runs at ~0.45 of its FP32 bound; the rest goes to the branch
+// around each root, which a warp takes when any of its lanes needs it, to
+// the 17% of lanes that still wait for their warp's busiest pixel, and to
+// the unpack, scatter and raygen that every lane runs each segment. Tables
+// above 48 KB (the giant scene's 4096 rows are 114,688 B) need the opt-in
 // attribute set below; the wrapper refuses tables above 227 KB.
 //
 // Counting: each thread's count is reduced over its warp, then over the
@@ -36,9 +51,11 @@
 
 namespace {
 
-constexpr int kBlockX = 16;
-constexpr int kBlockY = 8;
-constexpr int kThreads = kBlockX * kBlockY;
+constexpr int kWarpW = 8, kWarpH = 4;        // pixels of one warp
+constexpr int kWarpsX = 2, kWarpsY = 2;      // warps of one block
+constexpr int kBlockX = kWarpW * kWarpsX;    // 16
+constexpr int kBlockY = kWarpH * kWarpsY;    // 8
+constexpr int kThreads = kBlockX * kBlockY;  // 128
 
 __global__ void __launch_bounds__(kThreads)
 respawn_kernel(const float* __restrict__ spheres, int S,
@@ -48,61 +65,28 @@ respawn_kernel(const float* __restrict__ spheres, int S,
                float* __restrict__ rr_out, float* __restrict__ rg_out,
                float* __restrict__ rb_out, int* __restrict__ cnt_out,
                unsigned long long* __restrict__ total) {
-  extern __shared__ float sph[];
+  extern __shared__ float4 hot[];  // (S) float4, then (3, S) payload
+  float* pay = reinterpret_cast<float*>(hot + S);
   __shared__ float cam[19];
   __shared__ unsigned long long warp_sums[kThreads / 32];
 
-  const int tid = threadIdx.y * kBlockX + threadIdx.x;
-  for (int i = tid; i < r1b::kNumRows * S; i += kThreads) sph[i] = spheres[i];
+  const int tid = threadIdx.x;
+  for (int s = tid; s < S; s += kThreads) r1b::stage_row(spheres, S, s, hot, pay);
   if (tid < 19) cam[tid] = cam_in[tid];
   __syncthreads();
 
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int x = blockIdx.x * kBlockX + (warp % kWarpsX) * kWarpW +
+                lane % kWarpW;
+  const int y = blockIdx.y * kBlockY + (warp / kWarpsX) * kWarpH +
+                lane / kWarpW;
   int cnt = 0;
   if (x < width && y < height) {
     const int pid = y * width + x;
-    const float xf = (float)x, yf = (float)y;
     float rr = 0.0f, rg = 0.0f, rb = 0.0f;
-    for (int s = s_lo; s < s_hi; ++s) {
-      const uint32_t rid = (uint32_t)(pid * spp + s);
-      float ju, jv;
-      r1b::uniform_pair16(seed, rid, r1b::kBounceRaygen,
-                          r1b::kSlotPixelJitter, ju, jv);
-      float ox, oy, oz, dx, dy, dz;
-      r1b::generate_ray(cam, (xf + ju) * inv_w, (yf + jv) * inv_h, seed, rid,
-                        ox, oy, oz, dx, dy, dz);
-      float ar = 1.0f, ag = 1.0f, ab = 1.0f;
-      for (int b = 0;; ++b) {
-        ++cnt;
-        float bt;
-        const int best = r1b::sweep(sph, S, t_min, ox, oy, oz, dx, dy, dz, bt);
-        // hit = bt < float32(3e38), megakernel._closest_hit_record
-        if (!(bt < 0x1.c363ccp+127f)) {
-          float skr, skg, skb;
-          r1b::sky_color(dy, skr, skg, skb);
-          rr = rr + ar * skr;
-          rg = rg + ag * skg;
-          rb = rb + ab * skb;
-          break;
-        }
-        const r1b::Hit h =
-            r1b::unpack_hit(sph, S, best, bt, ox, oy, oz, dx, dy, dz);
-        float sx, sy, sz;
-        const bool ok =
-            r1b::scatter(h, dx, dy, dz, seed, rid, (uint32_t)b, sx, sy, sz);
-        if (!(ok && b < max_bounces)) break;
-        ox = h.px;
-        oy = h.py;
-        oz = h.pz;
-        dx = sx;
-        dy = sy;
-        dz = sz;
-        ar = ar * h.albedo_x;
-        ag = ag * h.albedo_y;
-        ab = ab * h.albedo_z;
-      }
-    }
+    cnt = r1b::respawn_pixel(hot, pay, S, cam, pid, (float)x, (float)y, spp,
+                             s_lo, s_hi, max_bounces, t_min, seed, inv_w,
+                             inv_h, rr, rg, rb);
     rr_out[pid] = rr;
     rg_out[pid] = rg;
     rb_out[pid] = rb;
@@ -111,7 +95,7 @@ respawn_kernel(const float* __restrict__ spheres, int S,
 
   unsigned long long c = (unsigned long long)cnt;
   for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xFFFFFFFFu, c, off);
-  if ((tid & 31) == 0) warp_sums[tid >> 5] = c;
+  if (lane == 0) warp_sums[warp] = c;
   __syncthreads();
   if (tid == 0) {
     unsigned long long block = 0;
@@ -134,10 +118,9 @@ extern "C" int rays1_respawn_launch(
   cudaError_t err = cudaFuncSetAttribute(
       respawn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
                   (height + kBlockY - 1) / kBlockY);
-  respawn_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+  respawn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       spheres, S, cam, width, height, spp, s_lo, s_hi, max_bounces, t_min,
       seed, inv_w, inv_h, rr, rg, rb, cnt, total);
   return (int)cudaGetLastError();

@@ -47,8 +47,9 @@ GRAD_ROWS = ("center_x", "center_y", "center_z", "radius_sq", "inv_radius",
 NUM_GRAD = len(GRAD_ROWS)
 # The exact table: the ten gradient columns and mat_type as a float.
 NUM_COLS = NUM_GRAD + 1
-# The kernel checkpoints each live bounce in a per-thread array of this
-# many + 1 entries (kMaxBounces in csrc/mega_backward.cu).
+# The kernel checkpoints each live bounce in a per-thread array of at most
+# this many + 1 entries (kMaxBounces in csrc/mega_backward.cu; a launch of
+# up to 10 bounces takes the 11-entry instantiation).
 MAX_BOUNCES = 50
 # Dynamic shared memory a block may use on Hopper (227 KB), less a margin
 # for static shared memory: the (11, S) table and the (10, S) accumulator.
@@ -183,7 +184,7 @@ def _backward_kernel():
     fn = lib.rays1_backward_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f,
-                   ctypes.c_uint32, f, f, p, p, p, p, p, p, p, p]
+                   ctypes.c_uint32, f, f, p, p, p, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -226,6 +227,7 @@ def backward(prep: PreparedSpheres, ox, oy, oz, dx, dy, dz, ray_id, ct_r,
 
     grads = torch.zeros((NUM_GRAD, s_count), dtype=torch.float32,
                         device=device)
+    work = torch.zeros(1, dtype=torch.int32, device=device)  # chunk counter
     cts = tuple(torch.empty(n, dtype=torch.float32, device=device)
                 for _ in range(6))
     if n == 0:
@@ -238,7 +240,7 @@ def backward(prep: PreparedSpheres, ox, oy, oz, dx, dy, dz, ray_id, ct_r,
              ct_b.data_ptr(), topo.data_ptr(), n, cfg.num_primary_rays,
              cfg.max_bounces, cfg.t_min, cfg.seed, soft,
              f32(1.0 / soft) if soft else 0.0, grads.data_ptr(),
-             *(c.data_ptr() for c in cts),
+             *(c.data_ptr() for c in cts), work.data_ptr(),
              torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mega_backward kernel launch failed: cudaError "

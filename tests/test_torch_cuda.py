@@ -27,6 +27,7 @@ from rays1bench_tpu_torch.kernels import (intersect_index, mega_backward,
                                          megakernel)
 from rays1bench_tpu_torch.kernels.pipeline import (prepare_trimmed, ray_coords,
                                                    render_image_megakernel)
+from rays1bench_tpu_torch.render.camera import CameraSpec
 from rays1bench_tpu_torch.render.pipeline import primary_rays, render_image
 from rays1bench_tpu_torch.scene import builders
 from rays1bench_tpu_torch.scene.soa_spheres import COLUMNS, SphereSOABuilder
@@ -72,6 +73,9 @@ def kernel_and_reference(scene_name, cfg, device, span=None):
     ("medium", 50, 30, 3, 6, None),       # ragged 16x8 blocks
     ("small", 33, 17, 4, 8, (1, 3)),      # hollow glass, a sample slice
     ("giant", 16, 8, 1, 3, None),         # 114,688 B table, > 48 KB
+    ("small", 50, 30, 4, 6, (2, 2)),      # ragged, an empty span
+    ("small", 50, 30, 4, 6, (3, 4)),      # ragged, a one-sample span
+    ("giant", 50, 30, 2, 4, None),        # the giant table, ragged warps
 ])
 def test_kernel_equals_plain_version(cuda, scene, w, h, spp, mb, span):
     cfg = RenderConfig(width=w, height=h, spp=spp, max_bounces=mb)
@@ -122,13 +126,16 @@ def test_topology_kernel_equals_plain_version(cuda, case):
     assert int(total) == int(cnt.sum())
 
 
-@pytest.mark.parametrize("case", GRAD_CASES)
-def test_fused_backward_matches_backward_reference(cuda, case):
-    cfg, scene, prep, rays, ray_id = grad_inputs(*case, cuda)
+def backward_against_reference(cfg, soa, rays, ray_id, device):
+    """The fused backward on these rays, at the topology the topology kernel
+    records for them, against backward_reference: every column and ray
+    plane within GRAD_TOL, all finite, placeholder rows exactly 0. Returns
+    the topology."""
+    prep = prepare(soa)
     _, _, _, topo = megakernel.trace_topology(megakernel.pack_spheres(prep),
                                               *rays, ray_id, cfg)
-    g = torch.Generator(device=cuda).manual_seed(3)
-    cts = [torch.rand(ray_id.numel(), generator=g, device=cuda) - 0.5
+    g = torch.Generator(device=device).manual_seed(5)
+    cts = [torch.rand(ray_id.numel(), generator=g, device=device) - 0.5
            for _ in range(3)]
     before = mega_backward.LAUNCHES
     grads, ray_cts = mega_backward.backward(prep, *rays, ray_id, *cts, topo,
@@ -140,8 +147,65 @@ def test_fused_backward_matches_backward_reference(cuda, case):
     for a, b in zip(list(grads) + list(ray_cts), list(ref) + list(ref_cts)):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max()) <= GRAD_TOL * float(b.abs().max())
-    if grads.shape[1] > scene.n_real:
-        assert float(grads[:, scene.n_real:].abs().max()) == 0.0
+    real = int((soa.radius != 0).sum())
+    if grads.shape[1] > real:
+        assert float(grads[:, real:].abs().max()) == 0.0
+    return topo
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_fused_backward_matches_backward_reference(cuda, case):
+    cfg, scene, _, rays, ray_id = grad_inputs(*case, cuda)
+    backward_against_reference(cfg, scene.spheres, rays, ray_id, cuda)
+
+
+def test_fused_backward_when_every_ray_hits_one_row(cuda):
+    """The ground alone, padded to 8 rows, under a camera looking straight
+    down: every hit is row 0, so every warp sums one row (the butterfly)."""
+    cfg = RenderConfig(width=64, height=32, spp=2, max_bounces=4, seed=5,
+                       early_exit=False)
+    b = SphereSOABuilder()
+    b.add(0.0, -100.5, -1.0, 100.0, 0, 0.8, 0.8, 0.0, 0.0, 1.0)
+    soa = b.finalize(8, cuda)
+    camera = CameraSpec(lookfrom=(0, 3, -1), lookat=(0, 0, -1),
+                        vup=(0, 0, -1), aspect=cfg.aspect).build(cuda)
+    ray_id, x, y = ray_coords(cfg, cuda)
+    rays = [r.contiguous() for r in primary_rays(camera, cfg, x, y, ray_id)]
+    topo = backward_against_reference(cfg, soa, rays, ray_id, cuda)
+    assert bool((topo[0] == 0).all()) and int(topo.max()) == 0
+
+
+def test_fused_backward_on_distinct_rows(cuda):
+    """The 512-row table with rays from seeded random origins and
+    directions: the lanes of a warp hit many distinct rows (the grouped
+    tree sums)."""
+    cfg = RenderConfig(width=100, height=100, spp=2, max_bounces=10, seed=5,
+                       early_exit=False)
+    soa = builders.create_large_scene(cfg.aspect, pad_multiple=128,
+                                      device=cuda).spheres
+    n = cfg.num_primary_rays
+    g = torch.Generator(device=cuda).manual_seed(11)
+    o = (torch.rand((3, n), generator=g, device=cuda) * 2 - 1) * 8
+    o[1] = torch.rand(n, generator=g, device=cuda) * 0.5 + 0.3
+    d = torch.randn((3, n), generator=g, device=cuda)
+    d = d / d.norm(dim=0)
+    ray_id = torch.arange(n, dtype=torch.int32, device=cuda)
+    rays = [r.contiguous() for r in (*o, *d)]
+    topo = backward_against_reference(cfg, soa, rays, ray_id, cuda)
+    rows = topo[0][topo[0] >= 0]
+    assert rows.unique().numel() > 256
+
+
+@pytest.mark.parametrize("mb", [10, 11, 50])
+def test_fused_backward_depth_caps(cuda, mb):
+    """Both checkpoint depths of the kernel: max_bounces up to 10 runs the
+    shallow instantiation, 11 and 50 the deep one; hollow glass keeps paths
+    alive past 10 bounces."""
+    cfg, scene, prep, rays, ray_id = grad_inputs("small", 48, 32, 2, mb, 8,
+                                                 cuda)
+    topo = backward_against_reference(cfg, scene.spheres, rays, ray_id, cuda)
+    if mb > 10:
+        assert bool((topo[10] >= 0).any())
 
 
 def test_fit_runs_through_both_kernels(cuda):
