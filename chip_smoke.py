@@ -43,14 +43,24 @@
 9. Holds the gradient kernels against their plain versions at that width,
    on the fitted medium scene and on the fitted large one (512 rows): the
    whole frame through the plain versions in chunks of rays (per-ray math
-   does not depend on the other rays), and ~4k of its rays (a pixel block,
-   the last column, the top row, the corners and seeded picks) as their own
-   ray list, whose topology and ray cotangents must equal the whole-frame
-   launch's bit for bit.
+   does not depend on the other rays; the backward's column sums are held
+   to GRAD_TOL of their summed scale, the sum over the plain version's
+   chunks of |chunk sum|, see gradient_gap), and ~4k of its rays (a pixel
+   block, the last column, the top row, the corners and seeded picks) as
+   their own ray list, whose topology and ray cotangents must equal the
+   whole-frame launch's bit for bit; and the whole frame's rays in a
+   seeded order (REFILL_SEED), whose topology, counts and radiance must be
+   the frame launch's, ray for ray. A gradient check that fails (here and in 7, 16
+   and 18) first saves its inputs under tmp/grad_cases
+   (bench.gradcase.save_case) and prints where.
 10. The closest-hit index kernel against its plain version, idx and hit
    equal bit for bit: on the medium and giant frames' primary rays at
-   1280x720 @ 4 spp (the plain version in chunks), and on seeded random
-   rays (N = 777 and 100,000, zero directions among them).
+   1280x720 @ 4 spp (the plain version in chunks), on the giant frame cut
+   to its first 1,500 rows (a whole 1,024-row tile of the kernel's shared
+   memory and a ragged one), and on seeded random rays (N = 777 and
+   100,000, zero directions among them). On one medium chunk and on each
+   frame, the kernel's profiler device time alone beside the whole call's
+   CUDA-event time; the call must run no other device work.
 11. The phase kernel against its plain version on small 64x32 @ 8 spp @ 6 b
    (hollow glass) and 50x30 @ 2 spp @ 4 b (ragged), schedules (2, 5),
    (2, 3, 6) at 3 b (the budget runs out first) and (1,): after every phase
@@ -67,7 +77,11 @@
    reference's bit for bit; each phase, from the same pre-phase state,
    leaves state, alive flags and counts equal to wavefront_phase_
    reference's over the same listed rays. Both comparison runs must
-   reproduce the engines' frames.
+   reproduce the engines' frames. From the one-shot launch's per-ray
+   counts, the lane occupancy a thread-per-ray loop nest would have on
+   warps of 32 consecutive rays, beside the flat loop's time; then the
+   frame's rays in a seeded order, each ray's outputs equal to the in-order
+   launch's.
 13. Drives the multi-scene CLI at its defaults (small, medium, large, one
    run each, the one-shot engine) and parses each out_<scene>.txt.
 14. engine="pipeline" gradients with the index kernel and with the plain
@@ -151,6 +165,8 @@ from rays1bench_tpu_torch.bench.grad import (ALBEDOS, GEOMETRY, cuda_ms,
                                              launch_ms, moved_geometry,
                                              perturb_albedos, phase_ms)
 from rays1bench_tpu_torch.bench import cli
+from rays1bench_tpu_torch.bench.gradcase import (random_cts, save_case,
+                                                 soa_grads, summed_scales)
 from rays1bench_tpu_torch.bench.harness import benchmark_sustained
 from rays1bench_tpu_torch.core.config import RenderConfig, get_config
 from rays1bench_tpu_torch.grad import inverse
@@ -200,6 +216,8 @@ OCC_CROP = (560, 316, 160, 90)
 # the column's max abs value. Host-compiled rehearsal of the same adjoint
 # against autograd: <= 2.5e-5.
 GRAD_TOL = 1e-3
+# Where a failed gradient check's inputs are saved (git-ignored).
+CASE_DIR = os.path.join(REPO, "tmp", "grad_cases")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak rate
 FP32_OPS_PER_S = 67e12 / 2     # non-fused FP32 adds and multiplies
 # FP32 adds and multiplies per sphere test on the sweep's miss path: 9 FADD
@@ -215,6 +233,7 @@ SWEEP_OPS = 16
 BACKWARD_OPS = 270
 FIT_SEED = 5
 SUBSET_SEED = 9
+REFILL_SEED = 12
 PLAIN_CHUNK = 1 << 19
 
 GRAD_CASES = [  # (name, scene, width, height, spp, max_bounces, pad)
@@ -407,13 +426,6 @@ def grad_inputs(scene_name, cfg, pad):
     return scene, prepare(scene.spheres), rays, ray_id
 
 
-def random_cts(n, seed):
-    """Per-ray radiance cotangents, uniform in [-0.5, 0.5), from a seed."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.rand(n, generator=g, device="cuda") - 0.5
-            for _ in range(3)]
-
-
 def topology_gap(label, k, p):
     """k, p: (radiance, counts, topology) of kernel and plain version; raise
     unless equal bit for bit; returns the max abs radiance gap."""
@@ -428,15 +440,25 @@ def topology_gap(label, k, p):
     return err
 
 
-def grad_gap(label, k, p, n_real):
+def grad_gap(label, k, p, n_real, scales=None):
     """k, p: (grads, ray cotangents) of kernel and plain version; raise
     unless every column and ray plane is within GRAD_TOL, placeholder rows
     are exactly 0 and all is finite; returns (worst relative gap, max abs
-    gap)."""
+    gap). The gap of a column is over its max abs value, or, where scales
+    (aligned with the columns and then the planes) gives a summed scale
+    for it, over that scale's max (bench.gradcase.summed_scales)."""
     got = list(k[0]) + list(k[1])
     want = list(p[0]) + list(p[1])
-    rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-              for a, b in zip(got, want))
+    scales = scales or [None] * len(got)
+    rel = max(float((a - b).abs().max() / (b.abs() if s is None else s)
+                    .max().clamp_min(1e-30))
+              for a, b, s in zip(got, want, scales))
+    if any(s is not None for s in scales):
+        over_sum = max(float((a - b).abs().max()
+                             / b.abs().max().clamp_min(1e-30))
+                       for a, b in zip(got, want))
+        print(f"[grad] {label}: worst gap over max |sum| {over_sum:.2e} (not "
+              f"checked), over the summed scales {rel:.2e}", flush=True)
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     if not all(bool(torch.isfinite(a).all()) for a in got):
         raise AssertionError(f"{label}: non-finite cotangents")
@@ -474,7 +496,8 @@ def grad_case(label, scene_name, w, h, spp, mb, pad, soft=0.0):
     k, b_ms, _, _ = launch_ms(bwd)
     p, b_plain_ms = cuda_ms(lambda: mega_backward.backward_reference(
         prep, *rays, ray_id, *cts, topo, cfg))
-    rel, b_err = gradient_gap(label, k, p, scene.spheres, scene.n_real, soft)
+    rel, b_err = gradient_gap(label, k, p, scene.spheres, scene.n_real,
+                              (scene_name, scene.spheres, cfg, cts, 1, None))
     print(f"[grad] {label}{f', soft {soft}' if soft else ''}: {prep.count} "
           f"rows, {int(k_total)} rays | topology kernel {a_ms:.3f} ms, plain "
           f"{a_plain_ms:.1f} ms: topology, counts and radiance equal | fused "
@@ -608,7 +631,8 @@ def full_width(name, fitted, camera, cfg, n_real):
     p_grads = sum(q[0] for q in parts)
     p_cts = [torch.cat([q[1][c] for q in parts]) for c in range(6)]
     rel, b_err = gradient_gap(label, (k_grads, k_cts), (p_grads, p_cts),
-                              fitted, n_real, soft)
+                              fitted, n_real, (name, fitted, cfg, cts, 2,
+                                               None), [q[0] for q in parts])
     if soft:
         a_bound = soft_oneshot_bound(n, s_count, mb, rays_traced, stats)
         b_bound = soft_backward_bound(n, s_count, mb, rays_traced)
@@ -624,6 +648,15 @@ def full_width(name, fitted, camera, cfg, n_real):
           f"{b_bound[0]:.4f} ms, {b_bound[1]}), plain {b_plain_ms:.1f} ms: "
           f"worst relative gap {rel:.2e}, max abs gap {b_err:.2e}",
           flush=True)
+
+    perm = torch.randperm(n, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(REFILL_SEED))
+    q_rad, q_cnt, _, q_topo = megakernel.trace_topology(
+        packed, *(r[perm].contiguous() for r in rays),
+        ray_id[perm].contiguous(), cfg)
+    topology_gap(f"{label}, the frame's rays in a seeded order",
+                 (q_rad, q_cnt, q_topo),
+                 ([r[perm] for r in k_rad], k_cnt[perm], topo[:, perm]))
 
     idx = subset_rays(cfg)
     sub = [r[idx].contiguous() for r in rays]
@@ -649,11 +682,14 @@ def full_width(name, fitted, camera, cfg, n_real):
                             (s_grads, s_ray_cts),
                             mega_backward.backward_reference(
                                 prep, *sub, sub_id, *s_cts, s_topo, cfg),
-                            fitted, n_real, soft)
+                            fitted, n_real, (name, fitted, cfg, s_cts, 2,
+                                             sub_id))
     print(f"[full] {label}, {idx.numel()} rays launched alone: topology, "
           f"counts, radiance and ray cotangents equal to the frame's launch "
           f"bit for bit; against the plain versions topology equal, "
-          f"backward worst relative gap {s_rel:.2e}", flush=True)
+          f"backward worst relative gap {s_rel:.2e}; the frame's rays in a "
+          f"seeded order: topology, counts and radiance equal to the "
+          f"frame's launch", flush=True)
     return ((a_err, a_ms, a_plain_ms, a_bound),
             (b_err, b_ms, b_plain_ms, b_bound))
 
@@ -673,29 +709,25 @@ def soft_backward_bound(n, s_count, mb, live):
                     live * SOFT_BACKWARD_OPS)
 
 
-def soa_grads(soa, grads):
-    """GRAD_ROWS cotangents chained onto the scene's float columns through
-    scene/spheres.prepare (what a fit's parameters receive)."""
-    floats = [c for c in COLUMNS if c != "mat_type"]
-    soa = dataclasses.replace(soa, **{
-        c: getattr(soa, c).detach().clone().requires_grad_(True)
-        for c in floats})
-    prep = prepare(soa)
-    torch.autograd.backward(
-        [getattr(prep, n) for n in mega_backward.GRAD_ROWS], list(grads))
-    return [getattr(soa, c).grad for c in floats]
-
-
-def soft_grad_gap(label, k, p, soa, n_real):
+def soft_grad_gap(label, k, p, soa, n_real, chunks=None):
     """grad_gap for the soft mode: every column but the raw inv_radius one
     (rounding noise there: the soft normal is renormalized, so its exact
     derivative is 0), the ray planes, and the scene's own columns chained
-    through prepare, within GRAD_TOL. Prints the inv_radius column's gap;
-    returns (worst relative gap, max abs gap)."""
+    through prepare, within GRAD_TOL; the summed columns over their summed
+    scales where chunks gives the plain version's per-chunk grads. Prints
+    the inv_radius column's gap; returns (worst relative gap, max abs
+    gap)."""
     noise = mega_backward.GRAD_ROWS.index("inv_radius")
     keep = [r for r in range(mega_backward.NUM_GRAD) if r != noise]
+    scales = None
+    if chunks:
+        per = summed_scales(soa, chunks)
+        scales = ([per[f"grad {mega_backward.GRAD_ROWS[r]}"] for r in keep]
+                  + [None] * 6 + [per[f"scene {c}"] for c in COLUMNS
+                                  if c != "mat_type"])
     out = grad_gap(label, (k[0][keep], list(k[1]) + soa_grads(soa, k[0])),
-                   (p[0][keep], list(p[1]) + soa_grads(soa, p[0])), n_real)
+                   (p[0][keep], list(p[1]) + soa_grads(soa, p[0])), n_real,
+                   scales)
     if k[0].shape[1] > n_real and float(k[0][:, n_real:].abs().max()) != 0:
         raise AssertionError(f"{label}: placeholder rows got a gradient")
     ivr = float((k[0][noise] - p[0][noise]).abs().max()
@@ -705,10 +737,31 @@ def soft_grad_gap(label, k, p, soa, n_real):
     return out
 
 
-def gradient_gap(label, k, p, soa, n_real, soft):
-    if soft:
-        return soft_grad_gap(label, k, p, soa, n_real)
-    return grad_gap(label, k, p, n_real)
+def gradient_gap(label, k, p, soa, n_real, case, chunks=None):
+    """The gradient check of the mode of case's config (soft_grad_gap or
+    grad_gap). case: (scene name, SphereSOA, RenderConfig, cotangents,
+    cotangent seed, ray ids or None), the check's inputs; on a failure they
+    are saved under CASE_DIR (bench.gradcase.save_case) before it raises.
+    chunks: the plain version's grads chunk by chunk where it summed the
+    frame in chunks of rays; the column sums are then held to GRAD_TOL of
+    their summed scales, not of max |sum|. Where a column's terms cancel,
+    one ray's term can outweigh the sum many times over: in a fitted soft
+    scene, a ray bouncing between rows 2 and 1 for ten segments carried a
+    fuzz cotangent of -65.8 against a frame sum of 4.17, and the kernel and
+    the plain version, both float32, agree on that term to 2e-5 of itself
+    (tests/test_torch_host_kernels.py, the trapped ray), which is 3e-4 of
+    the sum; float64 moves the term by 8%."""
+    try:
+        if case[2].soft_silhouette:
+            return soft_grad_gap(label, k, p, soa, n_real, chunks)
+        scales = (None if chunks is None else
+                  list(sum(c.abs() for c in chunks)) + [None] * 6)
+        return grad_gap(label, k, p, n_real, scales)
+    except AssertionError:
+        d = save_case(CASE_DIR, label, *case)
+        print(f"[case] {label}: failed gradient check, inputs saved in {d}",
+              flush=True)
+        raise
 
 
 def soft_counts(label, stats):
@@ -984,12 +1037,52 @@ def index_gap(label, k, p):
     return int(k[1].sum()), max_gap(k, p)
 
 
-def index_frame(label, scene_name, pad):
+def device_ms(fn, function, reps):
+    """torch.profiler over reps calls of fn: (device ms a call of the
+    port's __global__ `function`, device ms a call of every device event,
+    names of the device events that are not `function`)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the profiler saw no device event")
+    dur = lambda e: (e.time_range.end - e.time_range.start) / 1e3
+    mine = [e for e in dev if bench_grad.is_kernel(e.name, function)]
+    return (sum(map(dur, mine)) / reps, sum(map(dur, dev)) / reps,
+            sorted({e.name[:60] for e in dev if e not in mine}))
+
+
+def index_split(label, fn, call_ms, reps):
+    """Print the index kernel's profiler device time a call beside the
+    call's CUDA-event time; raise if the call ran any other device work."""
+    alone, every, others = device_ms(fn, "index_kernel", reps)
+    print(f"[index] {label}: the call {call_ms:.4f} ms (CUDA events, "
+          f"launch_ms), the kernel alone {alone:.4f} ms, every device event "
+          f"of the call {every:.4f} ms (profiler, {reps} calls)", flush=True)
+    if others:
+        raise AssertionError(f"{label}: closest_hit_index ran other device "
+                             f"work: {others}")
+    return alone
+
+
+def index_frame(label, scene_name, pad, rows=None):
     """The index kernel on every primary ray of a 1280x720 @ 4 spp frame
-    (one launch) against its plain version in chunks of INDEX_PLAIN_CHUNK;
-    returns (prepared spheres, rays, max abs gap)."""
+    (one launch) against its plain version in chunks of INDEX_PLAIN_CHUNK,
+    on the scene's first `rows` rows if given; returns (prepared spheres,
+    rays, max abs gap, kernel ms, profiler device ms of the kernel)."""
     cfg = RenderConfig(**FULL)
     _, prep, rays, _ = grad_inputs(scene_name, cfg, pad)
+    if rows:
+        prep = dataclasses.replace(prep, **{
+            f.name: getattr(prep, f.name)[:rows].contiguous()
+            for f in dataclasses.fields(prep)})
     fn = lambda: intersect_index.closest_hit_index(prep, *rays, cfg.t_min)
     fn()
     k, k_ms, _, _ = launch_ms(fn)
@@ -1000,11 +1093,14 @@ def index_frame(label, scene_name, pad):
         for lo in range(0, rays[0].numel(), INDEX_PLAIN_CHUNK)])
     p = tuple(torch.cat([q[c] for q in parts]) for c in range(2))
     hits, err = index_gap(label, k, p)
+    bound = index_bound(rays[0].numel(), prep.count)
     print(f"[index] {label} ({prep.count} rows), {rays[0].numel()} primary "
           f"rays: idx and hit equal, {hits} hits | kernel {k_ms:.3f} ms "
           f"(one launch), plain {p_ms:.1f} ms (chunks of "
-          f"{INDEX_PLAIN_CHUNK})", flush=True)
-    return prep, rays, err
+          f"{INDEX_PLAIN_CHUNK}); bound {bound[0]:.4f} ms ({bound[1]})",
+          flush=True)
+    alone = index_split(label, fn, k_ms, 3)
+    return prep, rays, err, k_ms, alone
 
 
 def index_random(label, prep, n, seed):
@@ -1029,7 +1125,8 @@ def index_checks():
     """The index kernel against its plain version on the medium and giant
     frames and on random rays; returns (max abs gap, and ms, plain ms and
     bound of one launch at the medium fit's chunk shape)."""
-    prep, rays, err = index_frame("medium 1280x720 @ 4 spp", "medium", 8)
+    prep, rays, err, _, _ = index_frame("medium 1280x720 @ 4 spp", "medium",
+                                        8)
     chunk = [r[:INDEX_CHUNK].contiguous() for r in rays]
     fn = lambda: intersect_index.closest_hit_index(prep, *chunk, 1e-3)
     fn()
@@ -1042,10 +1139,14 @@ def index_checks():
     print(f"[index] medium, one chunk of {INDEX_CHUNK} rays x {prep.count} "
           f"rows: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
           f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+    index_split(f"medium, one chunk of {INDEX_CHUNK} rays", fn, k_ms, 50)
     errs.append(index_random("medium", prep, 777, 1))
-    giant, _, err = index_frame("giant 1280x720 @ 4 spp", "giant", 8)
+    giant, _, err, _, _ = index_frame("giant 1280x720 @ 4 spp", "giant", 8)
     errs += [err, index_random("giant", giant, 777, 2),
              index_random("giant", giant, 100_000, 3)]
+    # A whole tile of the kernel's shared memory and a ragged one.
+    errs.append(index_frame("giant 1280x720 @ 4 spp, its first 1,500 rows",
+                            "giant", 8, rows=1500)[2])
     return max(errs), k_ms, p_ms, bound
 
 
@@ -1111,8 +1212,12 @@ def oneshot_vs_plain(label, packed, rays, ray_id, cfg, frame, n_frame):
     """The one-shot kernel (no topology) on the engine's frame inputs, which
     must reproduce the engine's image and ray count, against its plain
     version over the whole frame in chunks of PLAIN_CHUNK rays: per-ray
-    radiance and counts equal bit for bit. Returns (max abs gap, kernel ms,
-    plain ms)."""
+    radiance and counts equal bit for bit. Then the lane occupancy a
+    thread-per-ray loop nest would have on this frame, from the kernel's own
+    per-ray counts, on warps of 32 consecutive rays, beside the flat loop's
+    time; and the frame's rays in a seeded order (REFILL_SEED), whose
+    outputs must be the frame's, ray for ray. Returns (max abs gap, kernel
+    ms, plain ms)."""
     (k_rad, k_cnt, k_total), k_ms = cuda_ms(
         lambda: megakernel.trace_oneshot(packed, *rays, ray_id, cfg))
     if not (torch.equal(image_of_rays(*k_rad, cfg), frame)
@@ -1132,6 +1237,26 @@ def oneshot_vs_plain(label, packed, rays, ray_id, cfg, frame, n_frame):
     print(f"[engines] {label}: one-shot kernel (no topology) on the frame's "
           f"{ray_id.numel()} rays {k_ms:.2f} ms, plain version {p_ms:.1f} ms "
           f"(chunks of {PLAIN_CHUNK}): radiance and counts equal",
+          flush=True)
+    nest = warp_occupancy(k_cnt.reshape(1, 1, -1), (32, 1))
+    print(f"[occupancy] {label}: a thread-per-ray loop nest on warps of 32 "
+          f"consecutive rays would keep {nest:.4f} of its lanes busy (from "
+          f"the kernel's per-ray counts: {n_frame} segments, mean "
+          f"{n_frame / ray_id.numel():.3f}, max {int(k_cnt.max())}); the flat "
+          f"loop took {k_ms:.2f} ms", flush=True)
+    perm = torch.randperm(ray_id.numel(), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(
+                              REFILL_SEED))
+    q_rad, q_cnt, q_total = megakernel.trace_oneshot(
+        packed, *(r[perm].contiguous() for r in rays),
+        ray_id[perm].contiguous(), cfg)
+    n_diff = sum(int((a != b[perm]).sum()) for a, b in zip(
+        (*q_rad, q_cnt), (*k_rad, k_cnt)))
+    if n_diff or int(q_total) != n_frame:
+        raise AssertionError(f"{label}: the frame's rays in another order: "
+                             f"{n_diff} radiance values and counts differ")
+    print(f"[engines] {label}: the frame's rays in a seeded order: every "
+          f"ray's radiance and count equal to the in-order launch's",
           flush=True)
     return max_gap((*k_rad, k_cnt), (*p_rad, p_cnt)), k_ms, p_ms
 

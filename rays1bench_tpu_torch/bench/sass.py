@@ -1,6 +1,6 @@
 """Instruction counts of the port's compiled kernels, read from their SASS.
 
-    python -m rays1bench_tpu_torch.bench.sass
+    python -m rays1bench_tpu_torch.bench.sass [--parent DIR]
 
 Builds the kernels (kernels/build.py), disassembles each library with
 `cuobjdump -sass`, and prints for each kernel its instruction total, the
@@ -13,17 +13,26 @@ loads (LDS, LDS.64), 128-bit shared loads (LDS.128), shared atomics
 (ATOMS), local-memory stores and loads (STL, LDL: a per-thread array or a
 spill) and branches (BRA). The closest-hit sweep is the loop with one
 LDS.128 per unrolled sphere in the respawn kernel (the interleaved
-float4 {cx, cy, cz, radius_sq} rows), and with four LDS per sphere in
-the one-shot, phase and index kernels. The full listings go beside the
-libraries, as <library>.sass. Needs the CUDA toolkit.
+float4 {cx, cy, cz, radius_sq} rows, in the respawn, one-shot and index
+kernels), and with four LDS per sphere in the phase kernel. The full
+listings go beside the libraries, as <library>.sass.
+
+--parent DIR (a parent's kernels/csrc, unpacked with git archive) builds
+the parent's sources with the same flags and prints, for each kernel,
+whether its instructions equal the parent's, function by function in
+order (the functions' names hold a hash of the source path). Needs the
+CUDA toolkit.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
+import os
 import re
 import shutil
 import subprocess
+import tempfile
 
 from rays1bench_tpu_torch.kernels import build
 
@@ -70,13 +79,43 @@ def loops(instrs):
     return out
 
 
-def main():
+def disassemble(lib):
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for lib in build.build_all():
-        text = subprocess.run([cuobjdump, "-sass", str(lib)],
-                              capture_output=True, text=True,
-                              check=True).stdout
+    return subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def same_as_parent(text, parent_dir, source):
+    """Whether the functions of `text` (cuobjdump -sass of a tree's library)
+    have the instructions of parent_dir/source built with the same flags,
+    in order; None where the parent has no such source."""
+    src = os.path.join(parent_dir, source)
+    if not os.path.exists(src):
+        return None
+    with tempfile.TemporaryDirectory() as d:
+        lib = os.path.join(d, "parent.so")
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
+                       capture_output=True, text=True, check=True)
+        parent = disassemble(lib)
+    body = lambda t: [[(a, o, x) for a, o, x in f]
+                      for f in parse(t).values()]
+    return body(parent) == body(text)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="a directory holding a parent's "
+                    "kernels/csrc, to compare each kernel's SASS with")
+    args = ap.parse_args(argv)
+    for (name, source), lib in zip(build.KERNELS, build.build_all()):
+        text = disassemble(lib)
         lib.with_suffix(".sass").write_text(text)
+        if args.parent:
+            same = same_as_parent(text, args.parent, source)
+            print(f"[sass] {name}: instructions "
+                  + {None: "(no parent source)", True: "equal to the "
+                     "parent's", False: "differ from the parent's"}[same],
+                  flush=True)
         for func, instrs in parse(text).items():
             atoms = collections.Counter(o for _, o, _ in instrs
                                         if o.startswith("ATOMS"))

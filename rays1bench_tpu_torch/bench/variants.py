@@ -1,9 +1,15 @@
-"""The redesigned respawn kernel and fused backward against their
-alternatives, on one CUDA card, in one process.
+"""The redesigned kernels against their alternatives, on one CUDA card, in
+one process.
 
     git archive <parent> rays1bench_tpu_torch/kernels/csrc | \\
         tar -x -C tmp/parent_csrc --strip-components=3
-    python -m rays1bench_tpu_torch.bench.variants --parent tmp/parent_csrc
+    python -m rays1bench_tpu_torch.bench.variants --parent tmp/parent_csrc \\
+        [--kernels oneshot,intersect_index]
+
+--kernels picks the kernels whose variants run. The default is the
+one-shot and index kernels, whose variants take the csrc of their
+redesign's parent, 5a43459, as --parent. The respawn and backward variants
+were written against the csrc of their own redesign's parent, 3290e84.
 
 Each variant is a copy of kernels/csrc (or of the parent's sources, given
 by --parent) with a few lines replaced (VARIANTS), built into a temporary
@@ -24,14 +30,42 @@ variants answer the design questions of the two kernels:
   butterfly for warps whose lanes all hold one row; with a static
   grid-stride share of the rays per block instead of the chunk counter.
 
+  oneshot, on the CLI frame (large 1280x720 @ 10 spp @ 50 b, no topology),
+  the medium and large 1280x720 @ 4 @ 10 topology frames (kernel A of the
+  "mega" fit) and the soft fit's and the medium stage-2 soft frames: the
+  tree's kernel (the flat loop that refills its lanes from the counter,
+  one atomic a warp and round, writing its rays' topology tails); the
+  parent (a loop nest, thread = ray); the parent with the float4 sweep of
+  the tree's kernel; a warp claiming 32 or 128 rays an atomic; a static
+  share of 32-ray chunks a warp (warp_stride) or of rays a lane
+  (static_stride) instead of the counter; each lane one ray of its own
+  and no refill (one_ray: the flat body as a nest); at least 10 or 12 resident
+  blocks an SM (__launch_bounds__, fewer registers); the flat loop with the
+  topology pre-filled with -1 by the launch instead of the tails; and
+  `rounds`, the tree's kernel with its
+  64-bit total replaced by 32 times its warps' loop rounds, whose ratio to
+  the rays traced is the flat loop's lane occupancy (its total is excluded
+  from the equality check). Then the medium albedo recipe's and the small
+  soft geometry recipe's whole "mega" training step with the tree's and
+  the parent's one-shot library in turns, in one process (step_case).
+
+  intersect_index, on one chunk of the medium pipeline fit (131,072 primary
+  rays x 48 rows) and the giant frame (1280x720 @ 4 spp x 4,096 rows): the
+  parent (its call packs the table in torch, 128 threads a block, the
+  whole table in shared memory), the tree's kernel (tiles of 1,024 rows,
+  512 threads), the tree's float4 sweep without tiles at 128 threads, and
+  tiles at 256 threads; each timed as a whole call and as the kernel's
+  profiler device time alone.
+
 Each kernel is timed in turns, every variant once in order and once in
 reverse order (the parent first and last): respawn frames between CUDA
-events, two a turn; backward launches alone as bench.grad.launch_ms times
-them, five a turn. Every variant's frame must equal the tree kernel's bit
-for bit; every backward variant's ray cotangents must equal the parent's
-and its columns come within GRAD_TOL of them, except where the
-accumulation is removed. Prints one line per kernel and variant with the
-card's name and power limit. Needs a CUDA device and nvcc.
+events, two a turn; backward, one-shot and index calls alone as
+bench.grad.launch_ms times them, five a turn (one-shot: three). Every variant's frame must equal the tree kernel's bit for
+bit (one-shot: radiance, counts, topology and total; index: idx and hit);
+every backward variant's ray cotangents must equal the parent's and its
+columns come within GRAD_TOL of them, except where the accumulation is
+removed. Prints one line per kernel and variant with the card's name and
+power limit. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -44,13 +78,20 @@ import shutil
 import subprocess
 import tempfile
 
+import numpy as np
 import torch
 
-from rays1bench_tpu_torch.bench.grad import (GEOMETRY, cuda_ms, launch_ms,
-                                             moved_geometry)
+from rays1bench_tpu_torch.bench.grad import (ALBEDOS, GEOMETRY, cuda_ms,
+                                             geometry_config, is_kernel,
+                                             launch_ms, moved_geometry,
+                                             perturb_albedos)
 from rays1bench_tpu_torch.bench.profile import smi
-from rays1bench_tpu_torch.core.config import RenderConfig
-from rays1bench_tpu_torch.kernels import build, mega_backward, megakernel
+from rays1bench_tpu_torch.core.config import RenderConfig, get_config
+from rays1bench_tpu_torch.grad.inverse import (InverseConfig,
+                                               make_train_step, params_of,
+                                               render_for_loss)
+from rays1bench_tpu_torch.kernels import (build, intersect_index,
+                                          mega_backward, megakernel)
 from rays1bench_tpu_torch.kernels.pipeline import prepare_trimmed, ray_coords
 from rays1bench_tpu_torch.render.pipeline import primary_rays
 from rays1bench_tpu_torch.scene import builders
@@ -228,8 +269,93 @@ STATIC = """  for (int base = blockIdx.x * kThreads; base < N;
        base += gridDim.x * kThreads) {
     const int i = base + tid;"""
 
+# The tree's refill: one atomic a round, of the lanes that need a ray.
+TAKE = """    auto take = [&](bool need, int) {
+      const unsigned m = __ballot_sync(kFull, need);
+      int base = 0;
+      if (lane == 0 && m) base = atomicAdd(work, __popc(m));
+      base = __shfl_sync(kFull, base, 0);
+      return base + __popc(m & ((1u << lane) - 1u));
+    };"""
+# Each lane a static share: rays gtid, gtid + T, gtid + 2T, ...
+STRIDE = """    const int first = blockIdx.x * kThreads + tid;
+    const int stride = gridDim.x * kThreads;
+    auto take = [&](bool, int i) { return i < 0 ? first : i + stride; };"""
+
+
+def pool_take(claim, static=False):
+    """A warp claims `claim` consecutive rays at a time into a pool that its
+    lanes take from by rank: from the counter, or with static=True from a
+    static share of claim-ray chunks a warp (w, w + W, w + 2W, ...)."""
+    fresh = ("""        fresh = next;
+        next += stride;""" if static else """        if (lane == 0) fresh = atomicAdd(work, kClaim);
+        fresh = __shfl_sync(kFull, fresh, 0);""")
+    start = ("""
+    int next = (blockIdx.x * kThreads + tid) / 32 * kClaim;
+    const int stride = gridDim.x * (kThreads / 32) * kClaim;""" if static
+             else "")
+    return f"""    const int kClaim = {claim};
+    int pool = 0, pool_end = 0;{start}
+    auto take = [&](bool need, int) {{
+      const unsigned m = __ballot_sync(kFull, need);
+      const int c = __popc(m), rank = __popc(m & ((1u << lane) - 1u));
+      const int left = pool_end - pool;
+      const bool claim = c > left;
+      int fresh = pool_end;
+      if (claim) {{
+{fresh}
+      }}
+      const int i = rank < left ? pool + rank : fresh + (rank - left);
+      pool = claim ? fresh + (c - left) : pool + c;
+      pool_end = claim ? fresh + kClaim : pool_end;
+      return i;
+    }};"""
+
+
+# Each lane one ray, its own, and a block a ray's 128: the flat body as a
+# loop nest (the warp runs as long as its deepest ray).
+ONE_RAY = """    auto take = [&](bool, int i) {
+      return i < 0 ? (int)(blockIdx.x * kThreads + tid) : N;
+    };"""
+GRID = ("  const int grid = S < kNestRows || blocks < resident ? blocks : "
+        "resident;")
+BOUNDS = "__global__ void __launch_bounds__(kThreads)\noneshot_kernel("
+ANY = "    auto any = [](bool p) { return __any_sync(kFull, p) != 0; };"
+ROUNDS = """    auto any = [&](bool p) {
+      const bool r = __any_sync(kFull, p) != 0;
+      rounds += r ? 1 : 0;
+      return r;
+    };"""
+REDUCE = ("  for (int off = 16; off > 0; off >>= 1) c += "
+          "__shfl_down_sync(kFull, c, off);")
+UNSET = "  unsigned long long c = 0;\n"
+ROUNDS_DECL = "  unsigned long long rounds = 0;\n"
+TAILS = """      if (topo)
+        for (int k = b + 1; k <= max_bounces; ++k)
+          topo[(size_t)k * N + i] = -1;
+"""
+LAUNCH = "  if (err != cudaSuccess) return (int)err;\n  const int blocks"
+PREFILL = """  if (err == cudaSuccess && topo)
+    err = cudaMemsetAsync(topo, 0xFF,
+                          sizeof(int) * (size_t)(max_bounces + 1) * N,
+                          (cudaStream_t)stream);
+""" + LAUNCH
+# The parent's one-shot kernel with the tree's float4 sweep: the hot rows
+# staged after its row-major table (and soft row), swept by sweep4.
+PARENT_STAGE = ("  for (int i = tid; i < r1b::kNumRows * S; i += kThreads) "
+                "sph[i] = spheres[i];")
+STAGE4 = PARENT_STAGE + """
+  float4* hot = reinterpret_cast<float4*>(sph + 8 * S);
+  for (int s = tid; s < S; s += kThreads)
+    hot[s] = float4{spheres[s], spheres[S + s], spheres[2 * S + s],
+                    spheres[3 * S + s]};"""
+PARENT_SMEM = "sizeof(float) * (r1b::kNumRows + (soft ? 1 : 0)) * (size_t)S;"
+INDEX_TILE = "constexpr int kIndexTile = 1024;"
+INDEX_THREADS = "constexpr int kThreads = 512;"
+
 # (name, "parent" or "tree" sources, [(file, old, new)]), the reference
-# first: the tree's kernel for respawn, the parent for backward.
+# first: the tree's kernel for respawn, one-shot and index, the parent for
+# backward.
 VARIANTS = {
     "respawn": [
         ("flat", "tree", []),
@@ -256,8 +382,48 @@ VARIANTS = {
                                      REDUCE_SCATTER)]),
         ("static_share", "tree", [("mega_backward.cu", DYNAMIC, STATIC)]),
     ],
+    "oneshot": [
+        ("flat", "tree", []),
+        ("parent", "parent", []),
+        ("nest_float4", "parent", [
+            ("oneshot.cu", PARENT_STAGE, STAGE4),
+            ("oneshot.cu", "r1b::sweep(sph, S, t_min,",
+             "r1b::sweep4(hot, S, t_min,"),
+            ("oneshot.cu", PARENT_SMEM,
+             "sizeof(float) * (r1b::kNumRows + 1 + 4) * (size_t)S;")]),
+        ("claim32", "tree", [("oneshot.cu", TAKE, pool_take(32))]),
+        ("claim128", "tree", [("oneshot.cu", TAKE, pool_take(128))]),
+        ("warp_stride", "tree", [("oneshot.cu", TAKE,
+                                  pool_take(32, static=True))]),
+        ("static_stride", "tree", [("oneshot.cu", TAKE, STRIDE)]),
+        ("one_ray", "tree", [("oneshot.cu", TAKE, ONE_RAY),
+                             ("oneshot.cu", GRID,
+                              "  const int grid = blocks;")]),
+        ("min_blocks10", "tree", [("oneshot.cu", BOUNDS, BOUNDS.replace(
+            "(kThreads)", "(kThreads, 10)"))]),
+        ("min_blocks12", "tree", [("oneshot.cu", BOUNDS, BOUNDS.replace(
+            "(kThreads)", "(kThreads, 12)"))]),
+        ("prefill", "tree", [("path_math.cuh", TAILS, ""),
+                             ("oneshot.cu", LAUNCH, PREFILL)]),
+        ("rounds", "tree", [("oneshot.cu", ANY, ROUNDS),
+                            ("oneshot.cu", UNSET, UNSET + ROUNDS_DECL),
+                            ("oneshot.cu", REDUCE,
+                             "  c = lane == 0 ? 32ull * rounds : 0ull;\n"
+                             + REDUCE)]),
+    ],
+    "intersect_index": [
+        ("tiles512", "tree", []),
+        ("parent", "parent", []),
+        ("whole128", "tree", [
+            ("path_math.cuh", INDEX_TILE, "constexpr int kIndexTile = 4096;"),
+            ("intersect_index.cu", INDEX_THREADS,
+             "constexpr int kThreads = 128;")]),
+        ("tiles256", "tree", [("intersect_index.cu", INDEX_THREADS,
+                               "constexpr int kThreads = 256;")]),
+    ],
 }
-SOURCES = {"respawn": "respawn.cu", "mega_backward": "mega_backward.cu"}
+SOURCES = {"respawn": "respawn.cu", "mega_backward": "mega_backward.cu",
+           "oneshot": "oneshot.cu", "intersect_index": "intersect_index.cu"}
 
 
 def compile_variant(kernel, name, src_dir, subs, out_dir):
@@ -284,12 +450,13 @@ def compile_variant(kernel, name, src_dir, subs, out_dir):
                        if "registers" in ln or "stack frame" in ln]
 
 
-def loader(like, path, parent_backward):
+def loader(like, path, drop_counter):
     """A ctypes function of the library at path with like's signature; the
-    parent's backward takes no chunk counter, so its adapter drops it."""
+    parent's backward and one-shot kernels take no counter, so their
+    adapter drops it."""
     fn = getattr(ctypes.CDLL(path), like.__name__)
     fn.restype = ctypes.c_int
-    if parent_backward:
+    if drop_counter:
         fn.argtypes = like.argtypes[:-2] + like.argtypes[-1:]
         return lambda *a: fn(*a[:-2], a[-1])
     fn.argtypes = like.argtypes
@@ -354,18 +521,154 @@ def backward_case(label, scene_name, pad, cfg, move, fns):
               f"{', '.join(f'{x:.4f}' for x in t)} ms", flush=True)
 
 
+def oneshot_case(label, scene_name, pad, cfg, move, topology, fns):
+    """One frame through every one-shot variant in turns; every variant's
+    radiance, counts, topology and total (but rounds' total) must equal
+    the tree kernel's."""
+    scene = builders.SCENES[scene_name](cfg.aspect, pad_multiple=pad or 128,
+                                        device="cuda")
+    spheres = (moved_geometry(scene.spheres, scene_name) if move
+               else scene.spheres)
+    # pad None: the render engines' sort-trimmed table.
+    prep = (prepare_trimmed(spheres, scene.n_real) if pad is None
+            else prepare(spheres))
+    packed = megakernel.pack_spheres(prep)
+    ray_id, x, y = ray_coords(cfg, "cuda")
+    rays = [r.contiguous() for r in primary_rays(scene.camera.build("cuda"),
+                                                 cfg, x, y, ray_id)]
+    trace = megakernel.trace_topology if topology else megakernel.trace_oneshot
+    run = lambda: trace(packed, *rays, ray_id, cfg)
+    ms, outs = {n: [] for n in fns}, {}
+    for name in turns(list(fns)):
+        megakernel._oneshot_kernel = lambda fn=fns[name]: fn
+        outs[name] = run()
+        ms[name].append(launch_ms(run)[1])
+    want = outs["flat"]
+    for name, out in outs.items():
+        same = (all(torch.equal(a, b) for a, b in zip(out[0], want[0]))
+                and torch.equal(out[1], want[1])
+                and (not topology or torch.equal(out[3], want[3]))
+                and (name == "rounds" or int(out[2]) == int(want[2])))
+        if not same:
+            raise AssertionError(f"oneshot {name}: {label} differs")
+    rays_traced = int(want[2])
+    # The per-ray nest of small tables counts no rounds.
+    paid = int(outs["rounds"][2]) if "rounds" in outs else 0
+    occupancy = f", lane occupancy {rays_traced / paid:.4f}" if paid else ""
+    for name, t in ms.items():
+        print(f"[variants] oneshot {label}, {prep.count} rows, {rays_traced} "
+              f"rays traced, {name}: {', '.join(f'{x:.4f}' for x in t)} ms"
+              + (occupancy if name == "rounds" else ""), flush=True)
+
+
+def step_case(label, scene_name, cfg, fns, rounds=5, steps=20):
+    """grad.inverse.make_train_step's "mega" step with each one-shot
+    variant's library in turns, `rounds` times: ms a step over `steps`
+    steps between CUDA events. In one process, so that the host's noise
+    from process to process stays out of the comparison."""
+    scene = builders.SCENES[scene_name](cfg.aspect, pad_multiple=8,
+                                        device="cuda")
+    camera = scene.camera.build("cuda")
+    with torch.no_grad():
+        target = render_for_loss(scene.spheres, camera, cfg, engine="mega")
+    if cfg.soft_silhouette:
+        start, inv = (moved_geometry(scene.spheres, scene_name),
+                      geometry_config(scene_name))
+    else:
+        start = perturb_albedos(scene.spheres, scene.n_real)
+        inv = InverseConfig(learning_rate=1e-2, optimize=ALBEDOS)
+    ms = {n: [] for n in fns}
+    for _ in range(rounds):
+        for name in turns(list(fns)):
+            megakernel._oneshot_kernel = lambda fn=fns[name]: fn
+            step, _ = make_train_step(start, camera, cfg, inv,
+                                      params_of(start, inv.optimize),
+                                      engine="mega")
+            step(target)
+            step(target)
+            ms[name].append(cuda_ms(lambda: [
+                step(target) for _ in range(steps)])[1] / steps)
+    for name, t in ms.items():
+        print(f"[variants] oneshot step, {label}, {name}: median "
+              f"{float(np.median(t)):.4f} ms a step "
+              f"({', '.join(f'{x:.3f}' for x in t)})", flush=True)
+
+
+def index_call(fn, parent, prep, rays, t_min):
+    """closest_hit_index through the library fn: the tree's kernel reads the
+    prepared columns; the parent's takes the (4, S) table that its wrapper
+    packed in torch on every call."""
+    n = rays[0].numel()
+    idx = torch.empty(n, dtype=torch.int32, device="cuda")
+    hit = torch.empty(n, dtype=torch.bool, device="cuda")
+    table = [intersect_index.pack(prep)] if parent else [
+        getattr(prep, c) for c in intersect_index._COLUMNS]
+    err = fn(*(t.data_ptr() for t in table), prep.count,
+             *(r.data_ptr() for r in rays), n, t_min, idx.data_ptr(),
+             hit.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"index kernel launch failed: cudaError {err}")
+    return idx, hit
+
+
+def kernel_alone_ms(run, reps):
+    """Profiler device ms of index_kernel a call, over reps calls."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    return sum((e.time_range.end - e.time_range.start) / 1e3
+               for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and is_kernel(e.name, "index_kernel")) / reps
+
+
+def index_case(label, scene_name, n, fns):
+    cfg = RenderConfig(**FIT, seed=5)
+    scene = builders.SCENES[scene_name](cfg.aspect, pad_multiple=8,
+                                        device="cuda")
+    prep = prepare(scene.spheres)
+    ray_id, x, y = ray_coords(cfg, "cuda")
+    rays = [r[:n].contiguous() for r in primary_rays(
+        scene.camera.build("cuda"), cfg, x, y, ray_id)]
+    ms, alone, outs = {k: [] for k in fns}, {k: [] for k in fns}, {}
+    reps = 5 if n < 1 << 20 else 2
+    for name in turns(list(fns)):
+        run = lambda fn=fns[name], p=name == "parent": index_call(
+            fn, p, prep, rays, cfg.t_min)
+        outs[name] = run()
+        ms[name].append(launch_ms(run, reps=reps)[1])
+        alone[name].append(kernel_alone_ms(run, 20 if reps == 5 else 2))
+    want = outs["tiles512"]
+    for name, out in outs.items():
+        if not all(torch.equal(a, b) for a, b in zip(out, want)):
+            raise AssertionError(f"index {name}: {label} differs")
+    for name in fns:
+        print(f"[variants] index {label}, {prep.count} rows, {n} rays, "
+              f"{name}: call {', '.join(f'{x:.4f}' for x in ms[name])} ms; "
+              f"kernel alone {', '.join(f'{x:.4f}' for x in alone[name])} "
+              f"ms", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
                     help="a directory holding the parent's kernels/csrc")
+    ap.add_argument("--kernels", default="oneshot,intersect_index",
+                    help="comma-separated kernels whose variants to run")
     args = ap.parse_args(argv)
+    kernels = args.kernels.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("bench.variants needs a CUDA device")
     print(f"[variants] card {smi('name', 'power.limit')[0]}", flush=True)
     out_dir = tempfile.mkdtemp(prefix="rays1bench_variants_")
     dirs = {"tree": str(build.CSRC), "parent": os.path.abspath(args.parent)}
     jobs = [(k, n, dirs[src], subs, out_dir)
-            for k, vs in VARIANTS.items() for n, src, subs in vs]
+            for k, vs in VARIANTS.items() if k in kernels
+            for n, src, subs in vs]
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         built = list(pool.map(lambda j: compile_variant(*j), jobs))
     libs = {}
@@ -373,22 +676,57 @@ def main(argv=None):
         print(f"[variants] ptxas {kernel} {name}: {'; '.join(regs)}",
               flush=True)
         libs.setdefault(kernel, {})[name] = path
-    like = megakernel._respawn_kernel()
-    respawn({n: loader(like, p, False) for n, p in libs["respawn"].items()})
-    like = mega_backward._backward_kernel()
-    fns = {n: loader(like, p, n.startswith("parent"))
-           for n, p in libs["mega_backward"].items()}
     small, medium = GEOMETRY["small"][0], GEOMETRY["medium"][0]
-    backward_case("soft fit frame (small, 1280x720 @ 4 @ 10, soft 0.005)",
-                  "small", 8, RenderConfig(**FIT, seed=small,
-                                        soft_silhouette=0.005), True, fns)
-    backward_case("medium stage-2 soft frame (1280x720 @ 4 @ 10, soft "
-                  "0.005)", "medium", 8, RenderConfig(
-                      **FIT, seed=medium, soft_silhouette=0.005), True, fns)
-    backward_case("medium (1280x720 @ 4 @ 10)", "medium", 8,
-                  RenderConfig(**FIT, seed=5), False, fns)
-    backward_case("large (512 rows, 1280x720 @ 4 @ 10)", "large", 128,
-                  RenderConfig(**FIT, seed=5), False, fns)
+    soft_small = RenderConfig(**FIT, seed=small, soft_silhouette=0.005)
+    soft_medium = RenderConfig(**FIT, seed=medium, soft_silhouette=0.005)
+    if "respawn" in libs:
+        like = megakernel._respawn_kernel()
+        respawn({n: loader(like, p, False)
+                 for n, p in libs["respawn"].items()})
+    if "mega_backward" in libs:
+        like = mega_backward._backward_kernel()
+        fns = {n: loader(like, p, n.startswith("parent"))
+               for n, p in libs["mega_backward"].items()}
+        backward_case("soft fit frame (small, 1280x720 @ 4 @ 10, soft "
+                      "0.005)", "small", 8, soft_small, True, fns)
+        backward_case("medium stage-2 soft frame (1280x720 @ 4 @ 10, soft "
+                      "0.005)", "medium", 8, soft_medium, True, fns)
+        backward_case("medium (1280x720 @ 4 @ 10)", "medium", 8,
+                      RenderConfig(**FIT, seed=5), False, fns)
+        backward_case("large (512 rows, 1280x720 @ 4 @ 10)", "large", 128,
+                      RenderConfig(**FIT, seed=5), False, fns)
+    if "oneshot" in libs:
+        like = megakernel._oneshot_kernel()
+        fns = {n: loader(like, p, n in ("parent", "nest_float4"))
+               for n, p in libs["oneshot"].items()}
+        oneshot_case("CLI frame (large 1280x720 @ 10 @ 50)", "large", None,
+                     get_config("full"), False, False, fns)
+        oneshot_case("CLI frame (small 1280x720 @ 10 @ 50)", "small", None,
+                     get_config("full"), False, False, fns)
+        oneshot_case("medium A (1280x720 @ 4 @ 10)", "medium", 8,
+                     RenderConfig(**FIT, seed=5), False, True, fns)
+        oneshot_case("large A (1280x720 @ 4 @ 10)", "large", 128,
+                     RenderConfig(**FIT, seed=5), False, True, fns)
+        oneshot_case("soft A (small, 1280x720 @ 4 @ 10, soft 0.005)",
+                     "small", 8, soft_small, True, True, fns)
+        oneshot_case("soft medium A (1280x720 @ 4 @ 10, soft 0.005)",
+                     "medium", 8, soft_medium, True, True, fns)
+        pair = {n: fns[n] for n in ("flat", "parent")}
+        step_case("medium albedo recipe (1280x720 @ 4 @ 10)", "medium",
+                  RenderConfig(**FIT, seed=5), pair)
+        step_case("small soft geometry recipe (1280x720 @ 4 @ 10, soft "
+                  "0.005)", "small", soft_small, pair)
+    if "intersect_index" in libs:
+        like = intersect_index._index_kernel()
+        fns = {}
+        for n, p in libs["intersect_index"].items():
+            fn = getattr(ctypes.CDLL(p), like.__name__)
+            fn.restype = ctypes.c_int
+            fn.argtypes = (like.argtypes[4:] if n == "parent"
+                           else like.argtypes)
+            fns[n] = fn
+        index_case("medium chunk", "medium", 131_072, fns)
+        index_case("giant frame (1280x720 @ 4 spp)", "giant", 3_686_400, fns)
     shutil.rmtree(out_dir, ignore_errors=True)
 
 

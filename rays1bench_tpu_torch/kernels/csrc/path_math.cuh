@@ -1,9 +1,10 @@
 // Per-ray math shared by the port's path-tracing kernels: the counter-hash
 // RNG lattice, the samplers, thin-lens raygen, the dense closest-hit sweep
-// over the packed sphere table (and over the respawn kernel's broadcast
-// layout), its unpack, the soft-silhouette mode's graze sweep and soft
-// record, material scatter, the sky, and the respawn kernel's whole lane
-// (respawn_pixel).
+// over the packed sphere table (and over the broadcast layout of the
+// respawn and one-shot kernels), its unpack, the soft-silhouette mode's
+// graze sweep and soft record, material scatter, the sky, the respawn and
+// one-shot kernels' whole lanes (respawn_pixel, oneshot_lane) and the index
+// kernel's tiled sweep (index_tiles).
 //
 // Each function computes exactly what its plain PyTorch counterpart computes
 // (rays1bench_tpu_torch/core/rng.py, core/vecmath.py, render/camera.py,
@@ -201,8 +202,8 @@ __device__ __forceinline__ int sweep(const float* sph, int S, float t_min,
 // interleaved as float4 {cx, cy, cz, radius_sq}, one 128-bit shared load per
 // sphere that every lane of a warp reads at once, unrolled kSweepUnroll
 // times. The same float operations in the same order as `sweep`, so the
-// same winner and root bit for bit. The one-shot, phase and index kernels
-// keep `sweep` over the row-major table.
+// same winner and root bit for bit. The respawn and one-shot kernels sweep
+// this layout; the phase kernel keeps `sweep` over the row-major table.
 constexpr int kSweepUnroll = 8;
 
 __device__ __forceinline__ int sweep4(const float4* hot, int S, float t_min,
@@ -320,27 +321,30 @@ __device__ __forceinline__ float sigmoid(float x) {
   return (float)(1.0 / (1.0 + exp(-(double)x)));
 }
 
-// The graze sweep: among rows with radius_sq > -1e29 whose closest approach
-// nb lies in (t_min, bt) and that the ray misses (edge <= 0), the first row
-// with the largest edge = sr[s] - sqrt(max(|co|^2 - nb^2, 1e-20)), where
-// sr[s] = sqrt(max(radius_sq, 0)) is precomputed per block (the same float
-// op, so the same bits). The cheap tests run before the second square root.
-// Returns the row, or -1; be is its edge (-inf without one), gnb its nb.
-__device__ __forceinline__ int graze_sweep(const float* sph, const float* sr,
-                                           int S, float t_min, float ox,
-                                           float oy, float oz, float dx,
-                                           float dy, float dz, float bt,
-                                           float& be, float& gnb) {
+// The graze sweep over the broadcast layout (stage_row), unrolled as
+// sweep4: among rows with radius_sq > -1e29 whose closest approach nb lies
+// in (t_min, bt) and that the ray misses (edge <= 0), the first row with the
+// largest edge = sr[s] - sqrt(max(|co|^2 - nb^2, 1e-20)), where sr[s] =
+// sqrt(max(radius_sq, 0)) is staged per block (the same float op, so the
+// same bits). The cheap tests run before the second square root. Returns
+// the row, or -1; be is its edge (-inf without one), gnb its nb.
+__device__ __forceinline__ int graze_sweep4(const float4* hot,
+                                            const float* sr, int S,
+                                            float t_min, float ox, float oy,
+                                            float oz, float dx, float dy,
+                                            float dz, float bt, float& be,
+                                            float& gnb) {
   be = -__int_as_float(0x7f800000);  // -inf
   gnb = 0.0f;
   int row = -1;
+#pragma unroll kSweepUnroll
   for (int s = 0; s < S; ++s) {
-    const float cox = sph[kCX * S + s] - ox;
-    const float coy = sph[kCY * S + s] - oy;
-    const float coz = sph[kCZ * S + s] - oz;
+    const float4 h = hot[s];
+    const float cox = h.x - ox;
+    const float coy = h.y - oy;
+    const float coz = h.z - oz;
     const float nb = cox * dx + coy * dy + coz * dz;
-    if (!(nb > t_min && nb < bt && sph[kRSQ * S + s] > -0x1.431e1p+96f))
-      continue;
+    if (!(nb > t_min && nb < bt && h.w > -0x1.431e1p+96f)) continue;
     const float co2 = cox * cox + coy * coy + coz * coz;
     const float edge = sr[s] - sqrtf(clamp_min_nan(co2 - nb * nb, kTiny));
     if (edge <= 0.0f && edge > be) {
@@ -392,17 +396,19 @@ __device__ __forceinline__ void soft_geometry(float cx, float cy, float cz,
   r.p2z = oz + t2 * dz;
 }
 
-// Soft hit record of row j of the packed table (megakernel.soft_hit_record):
-// soft_geometry and the payload decoded as unpack_hit decodes it.
-__device__ __forceinline__ SoftHit soft_hit(const float* sph, int S, int j,
-                                            float t_min, float inv_eps,
-                                            float ox, float oy, float oz,
-                                            float dx, float dy, float dz) {
+// Soft hit record of row j of the broadcast layout (stage_row;
+// megakernel.soft_hit_record): soft_geometry and the payload decoded as
+// unpack_hit4 decodes it.
+__device__ __forceinline__ SoftHit soft_hit4(const float4* hot,
+                                             const float* pay, int S, int j,
+                                             float t_min, float inv_eps,
+                                             float ox, float oy, float oz,
+                                             float dx, float dy, float dz) {
   SoftHit r;
-  soft_geometry(sph[kCX * S + j], sph[kCY * S + j], sph[kCZ * S + j],
-                sph[kRSQ * S + j], sph[kINVR * S + j], t_min, inv_eps, ox, oy,
-                oz, dx, dy, dz, r);
-  decode_material(sph[kALB * S + j], sph[kMTP * S + j], r.h);
+  const float4 c = hot[j];
+  soft_geometry(c.x, c.y, c.z, c.w, pay[j], t_min, inv_eps, ox, oy, oz, dx,
+                dy, dz, r);
+  decode_material(pay[S + j], pay[2 * S + j], r.h);
   return r;
 }
 
@@ -576,6 +582,344 @@ __device__ __forceinline__ int respawn_pixel(
     b = cont ? b + 1 : 0;
   }
   return cnt;
+}
+
+// ---- the one-shot kernel's lane (oneshot.cu) --------------------------------
+
+// Every ray a lane is handed, as one flat loop of segments
+// (megakernel._kernel's per-bounce step): count the segment, sweep (in soft
+// mode also the graze sweep and the promotion), record the topology plane,
+// add the sky on a miss, scatter (in soft mode the two-branch draw), then
+// continue while hit & ok & b < max_bounces. A ray that ends writes its
+// radiance, its count and -1 into the topology planes past its end; the
+// lane then takes its next ray index from take(need, i) and loads that
+// ray, so that it is not left idle while the rest of its warp traces
+// deeper rays.
+//
+// take(need, i): every lane of the warp calls it together, each segment;
+// it returns the next ray index of each lane with `need` (any index >= N
+// when none is left; the value is unused where need is false). i is the
+// lane's current index (-1 before its first). any(p): whether p holds on
+// any lane of the warp; the loop ends when no lane holds a ray. Both are
+// warp-collective on the card and plain on the host.
+//
+// Rays are read from ox_in..ray_id[i] and written at [i] (topology at
+// [b * N + i]), so outputs land in the caller's order whatever order the
+// lanes take the rays in. Ids >= n_rays are padding: one segment that
+// counts nothing and writes zeros, count 0 and -1 planes. Per-ray
+// arithmetic and its order are the plain version's, so the outputs are
+// equal to it bit for bit under any schedule. Returns the segments the
+// lane counted.
+//
+// The body keeps one path to the back-edge, as respawn_pixel does: every
+// lane unpacks and scatters (a miss unpacks row 0 and discards it), and
+// selects, not a branch, merge the refilled ray into the lane's state. The
+// refill's loads and the finished ray's stores are predicated.
+template <bool kSoft, class Take, class Any>
+__device__ __forceinline__ unsigned long long oneshot_lane(
+    const float4* hot, const float* pay, int S, const float* ox_in,
+    const float* oy_in, const float* oz_in, const float* dx_in,
+    const float* dy_in, const float* dz_in, const int* ray_id, int N,
+    int n_rays, int max_bounces, float t_min, uint32_t seed, float inv_eps,
+    float near_cut, float* rr_out, float* rg_out, float* rb_out,
+    int* cnt_out, int* topo, Take take, Any any) {
+  int i = -1, b = 0, cnt = 0;
+  bool cont = false, live = false;
+  uint32_t rid = 0;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float ar = 1.0f, ag = 1.0f, ab = 1.0f, rr = 0.0f, rg = 0.0f, rb = 0.0f;
+  unsigned long long total = 0;
+  for (;;) {
+    const bool need = !cont && i < N;
+    const int next = take(need, i);
+    i = need ? next : i;
+    const bool fresh = need && i < N;
+    float nox = 0.0f, noy = 0.0f, noz = 0.0f;
+    float ndx = 0.0f, ndy = 0.0f, ndz = 0.0f;
+    int nrid = 0;
+    if (fresh) {
+      nox = ox_in[i];
+      noy = oy_in[i];
+      noz = oz_in[i];
+      ndx = dx_in[i];
+      ndy = dy_in[i];
+      ndz = dz_in[i];
+      nrid = ray_id[i];
+    }
+    ox = cont ? ox : nox;
+    oy = cont ? oy : noy;
+    oz = cont ? oz : noz;
+    dx = cont ? dx : ndx;
+    dy = cont ? dy : ndy;
+    dz = cont ? dz : ndz;
+    rid = cont ? rid : (uint32_t)nrid;
+    live = cont ? live : fresh && nrid < n_rays;
+    ar = cont ? ar : 1.0f;
+    ag = cont ? ag : 1.0f;
+    ab = cont ? ab : 1.0f;
+    rr = cont ? rr : 0.0f;
+    rg = cont ? rg : 0.0f;
+    rb = cont ? rb : 0.0f;
+    cnt = cont ? cnt : 0;
+    b = cont ? b : 0;
+    if (!any(i < N)) break;
+
+    cnt += live ? 1 : 0;
+    total += live ? 1u : 0u;
+    float bt;
+    int best = sweep4(hot, S, t_min, ox, oy, oz, dx, dy, dz, bt);
+    if (kSoft) {
+      float be, gnb;
+      const int row = graze_sweep4(hot, pay + 3 * S, S, t_min, ox, oy, oz,
+                                   dx, dy, dz, bt, be, gnb);
+      const bool near = be > near_cut;  // promotion: the graze wins, at nb
+      best = near ? row : best;
+      bt = near ? gnb : bt;
+    }
+    // hit = bt < float32(3e38), megakernel._closest_hit_record
+    const bool hit = live && bt < 0x1.c363ccp+127f;
+    const bool sky = live && !hit;
+    float skr, skg, skb;
+    sky_color(dy, skr, skg, skb);
+    rr = sky ? rr + ar * skr : rr;
+    rg = sky ? rg + ag * skg : rg;
+    rb = sky ? rb + ab * skb : rb;
+    const int row = hit ? best : 0;
+    float mr, mg, mb, hx, hy, hz, sx, sy, sz;
+    bool ok;
+    if (kSoft) {
+      const SoftHit sh = soft_hit4(hot, pay, S, row, t_min, inv_eps, ox, oy,
+                                   oz, dx, dy, dz);
+      ok = scatter(sh.h, dx, dy, dz, seed, rid, (uint32_t)b, sx, sy, sz);
+      const float u = uniform01(seed, rid, (uint32_t)b, kSlotSilhouetteP);
+      // Bounce off the sphere, or pass through from the far exit with the
+      // direction kept.
+      const bool bounce = u < sh.cover;
+      const float w = bounce_weight(sh.cover);
+      const float wt = pass_weight(sh.cover);
+      mr = bounce ? sh.h.albedo_x * w : wt;
+      mg = bounce ? sh.h.albedo_y * w : wt;
+      mb = bounce ? sh.h.albedo_z * w : wt;
+      sx = bounce ? sx : dx;
+      sy = bounce ? sy : dy;
+      sz = bounce ? sz : dz;
+      hx = bounce ? sh.h.px : sh.p2x;
+      hy = bounce ? sh.h.py : sh.p2y;
+      hz = bounce ? sh.h.pz : sh.p2z;
+      ok = ok || !bounce;
+    } else {
+      const Hit h = unpack_hit4(hot, pay, S, row, bt, ox, oy, oz, dx, dy,
+                                dz);
+      ok = scatter(h, dx, dy, dz, seed, rid, (uint32_t)b, sx, sy, sz);
+      mr = h.albedo_x;
+      mg = h.albedo_y;
+      mb = h.albedo_z;
+      hx = h.px;
+      hy = h.py;
+      hz = h.pz;
+    }
+    cont = hit && ok && b < max_bounces;
+    const bool mine = i < N;
+    if (topo && mine) topo[(size_t)b * N + i] = hit ? best : -1;
+    if (!cont && mine) {
+      rr_out[i] = rr;
+      rg_out[i] = rg;
+      rb_out[i] = rb;
+      cnt_out[i] = cnt;
+      if (topo)
+        for (int k = b + 1; k <= max_bounces; ++k)
+          topo[(size_t)k * N + i] = -1;
+    }
+    ox = hx;
+    oy = hy;
+    oz = hz;
+    dx = sx;
+    dy = sy;
+    dz = sz;
+    ar = ar * mr;
+    ag = ag * mg;
+    ab = ab * mb;
+    b = b + 1;
+  }
+  return total;
+}
+
+// Ray i traced to its end a bounce at a time (megakernel._kernel's loop
+// nest), with the per-ray arithmetic of oneshot_lane: the one-shot
+// kernel's path for tables of fewer than kNestRows rows. There a segment's
+// sweep is short, and the flat loop's refill and its unconditional record
+// and scatter cost more than the lanes it keeps busy; here a warp whose
+// lanes all missed or ended skips them. Writes every topology plane of the
+// ray, radiance and count at [i]; returns the count.
+template <bool kSoft>
+__device__ __forceinline__ int oneshot_ray(
+    const float4* hot, const float* pay, int S, int i, const float* ox_in,
+    const float* oy_in, const float* oz_in, const float* dx_in,
+    const float* dy_in, const float* dz_in, const int* ray_id, int N,
+    int n_rays, int max_bounces, float t_min, uint32_t seed, float inv_eps,
+    float near_cut, float* rr_out, float* rg_out, float* rb_out,
+    int* cnt_out, int* topo) {
+  const int rid_i = ray_id[i];
+  const uint32_t rid = (uint32_t)rid_i;
+  bool alive = rid_i < n_rays;
+  float ox = ox_in[i], oy = oy_in[i], oz = oz_in[i];
+  float dx = dx_in[i], dy = dy_in[i], dz = dz_in[i];
+  float ar = 1.0f, ag = 1.0f, ab = 1.0f, rr = 0.0f, rg = 0.0f, rb = 0.0f;
+  int cnt = 0;
+  for (int b = 0; b <= max_bounces; ++b) {
+    int plane = -1;
+    if (alive) {
+      ++cnt;
+      float bt;
+      int best = sweep4(hot, S, t_min, ox, oy, oz, dx, dy, dz, bt);
+      if (kSoft) {
+        float be, gnb;
+        const int row = graze_sweep4(hot, pay + 3 * S, S, t_min, ox, oy, oz,
+                                     dx, dy, dz, bt, be, gnb);
+        if (be > near_cut) {
+          best = row;
+          bt = gnb;
+        }
+      }
+      if (!(bt < 0x1.c363ccp+127f)) {
+        float skr, skg, skb;
+        sky_color(dy, skr, skg, skb);
+        rr = rr + ar * skr;
+        rg = rg + ag * skg;
+        rb = rb + ab * skb;
+        alive = false;
+      } else {
+        float mr, mg, mb, hx, hy, hz, sx, sy, sz;
+        bool ok;
+        if (kSoft) {
+          const SoftHit sh = soft_hit4(hot, pay, S, best, t_min, inv_eps, ox,
+                                       oy, oz, dx, dy, dz);
+          ok = scatter(sh.h, dx, dy, dz, seed, rid, (uint32_t)b, sx, sy, sz);
+          const float u =
+              uniform01(seed, rid, (uint32_t)b, kSlotSilhouetteP);
+          if (u < sh.cover) {  // bounce off the sphere
+            const float w = bounce_weight(sh.cover);
+            mr = sh.h.albedo_x * w;
+            mg = sh.h.albedo_y * w;
+            mb = sh.h.albedo_z * w;
+            hx = sh.h.px;
+            hy = sh.h.py;
+            hz = sh.h.pz;
+          } else {  // pass through from the far exit
+            mr = mg = mb = pass_weight(sh.cover);
+            sx = dx;
+            sy = dy;
+            sz = dz;
+            hx = sh.p2x;
+            hy = sh.p2y;
+            hz = sh.p2z;
+            ok = true;
+          }
+        } else {
+          const Hit h = unpack_hit4(hot, pay, S, best, bt, ox, oy, oz, dx, dy,
+                                    dz);
+          ok = scatter(h, dx, dy, dz, seed, rid, (uint32_t)b, sx, sy, sz);
+          mr = h.albedo_x;
+          mg = h.albedo_y;
+          mb = h.albedo_z;
+          hx = h.px;
+          hy = h.py;
+          hz = h.pz;
+        }
+        plane = best;
+        if (ok && b < max_bounces) {
+          ox = hx;
+          oy = hy;
+          oz = hz;
+          dx = sx;
+          dy = sy;
+          dz = sz;
+          ar = ar * mr;
+          ag = ag * mg;
+          ab = ab * mb;
+        } else {
+          alive = false;
+        }
+      }
+    }
+    if (topo) topo[(size_t)b * N + i] = plane;
+  }
+  rr_out[i] = rr;
+  rg_out[i] = rg;
+  rb_out[i] = rb;
+  cnt_out[i] = cnt;
+  return cnt;
+}
+
+// ---- the closest-hit index sweep (intersect_index.cu) -----------------------
+
+// Rows of the sphere table a block holds in shared memory at once: 16 KB of
+// float4 rows.
+constexpr int kIndexTile = 1024;
+
+// Row s of the index table of intersect_index.pack, built from the prepared
+// columns: {cx, cy, cz, valid > 0 ? radius_sq : float32(-1e30)}.
+__device__ __forceinline__ float4 index_row(const float* cx, const float* cy,
+                                            const float* cz, const float* rsq,
+                                            const float* valid, int s) {
+  return float4{cx[s], cy[s], cz[s],
+                valid[s] > 0.0f ? rsq[s] : -0x1.93e594p+99f};
+}
+
+// The index sweep's test of n staged rows, which are table rows base..
+// base+n-1, in row order (intersect_pallas._kernel's form): a row counts
+// only where disc > 0, t = t1 > t_min ? t1 : t2 must exceed t_min, and a
+// strict < keeps the first row among equal roots. No t_max test. Unrolled
+// as sweep4.
+__device__ __forceinline__ void index_sweep4(const float4* tile, int n,
+                                             int base, float t_min, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, float& bt,
+                                             int& bi) {
+#pragma unroll kSweepUnroll
+  for (int s = 0; s < n; ++s) {
+    const float4 h = tile[s];
+    const float cox = h.x - ox;
+    const float coy = h.y - oy;
+    const float coz = h.z - oz;
+    const float nb = cox * dx + coy * dy + coz * dz;
+    const float c = cox * cox + coy * coy + coz * coz - h.w;
+    const float disc = nb * nb - c;
+    if (disc > 0.0f) {
+      const float sq = sqrtf(disc);
+      const float t1 = nb - sq;
+      const float t2 = nb + sq;
+      const float t = t1 > t_min ? t1 : t2;
+      if (t > t_min && t < bt) {
+        bt = t;
+        bi = base + s;
+      }
+    }
+  }
+}
+
+// One ray against all S rows, a tile of kIndexTile rows at a time: the
+// threads of the block (tid of `threads`) stage each tile into `tile`
+// together, between calls of sync(), and every thread sweeps it. Every
+// thread of the block calls it, with a ray or not. Returns the winning row
+// (0 on a miss); bt its root (+inf without one).
+template <class Sync>
+__device__ __forceinline__ int index_tiles(
+    const float* cx, const float* cy, const float* cz, const float* rsq,
+    const float* valid, int S, int tid, int threads, float4* tile,
+    float t_min, float ox, float oy, float oz, float dx, float dy, float dz,
+    float& bt, Sync sync) {
+  bt = __int_as_float(0x7f800000);  // +inf
+  int bi = 0;
+  for (int base = 0; base < S; base += kIndexTile) {
+    const int n = S - base < kIndexTile ? S - base : kIndexTile;
+    if (base) sync();  // every thread is done with the previous tile
+    for (int k = tid; k < n; k += threads)
+      tile[k] = index_row(cx, cy, cz, rsq, valid, base + k);
+    sync();
+    index_sweep4(tile, n, base, t_min, ox, oy, oz, dx, dy, dz, bt, bi);
+  }
+  return bi;
 }
 
 }  // namespace r1b

@@ -10,8 +10,11 @@ normal from that row in O(N), differentiably.
 
 `closest_hit_index` launches the CUDA kernel of csrc/intersect_index.cu on
 a CUDA tensor and runs `closest_hit_index_reference`, its plain torch
-version, on a CPU tensor; there is no fallback between the two. Both keep
-the Pallas kernel's exact form (`_kernel`, `_pack`): a (4, S) table with
+version, on a CPU tensor; there is no fallback between the two. The kernel
+reads the prepared columns and builds the table itself, so on the card the
+call launches nothing before it; `pack` builds the same table for the plain
+version. Both keep the Pallas kernel's exact form (`_kernel`, `_pack`): a
+(4, S) table with
 radius_sq = -1e30 on placeholder rows; `disc > 0 ? sqrt(max(disc, 0)) :
 INF`; t = t1 > t_min ? t1 : t2; a root counts only above t_min; the first
 row wins among equal roots; hit = best root < 3e38; no t_max test. It picks
@@ -35,13 +38,12 @@ import torch
 
 from rays1bench_tpu_torch.core.vecmath import sqrt
 from rays1bench_tpu_torch.kernels import build
-from rays1bench_tpu_torch.kernels.megakernel import (check_rays,
-                                                     check_table_fits,
-                                                     check_tensor)
+from rays1bench_tpu_torch.kernels.megakernel import check_rays, check_tensor
 from rays1bench_tpu_torch.scene.spheres import PreparedSpheres
 
-NUM_INDEX_ROWS = 4
 _BIG = 3.0e38
+# The PreparedSpheres columns the kernel builds its table from.
+_COLUMNS = ("center_x", "center_y", "center_z", "radius_sq", "valid")
 
 # Kernel launches made by closest_hit_index (one per call on a CUDA tensor).
 LAUNCHES = 0
@@ -80,7 +82,7 @@ def _index_kernel():
     lib = build.load("intersect_index", "intersect_index.cu")
     fn = lib.rays1_index_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, i, p, p, p, p, p, p, i, f, p, p, p]
+    fn.argtypes = [p, p, p, p, p, i, p, p, p, p, p, p, i, f, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -95,25 +97,24 @@ def closest_hit_index(prep: PreparedSpheres, ox, oy, oz, dx, dy, dz,
     bool[N]). CUDA tensors launch the kernel of csrc/intersect_index.cu on
     the current stream; CPU tensors run closest_hit_index_reference."""
     global LAUNCHES
-    table = pack(prep)
-    device = table.device
-    s_count = table.shape[1]
+    device = prep.center_x.device
+    s_count = prep.count
+    cols = [getattr(prep, c).detach().contiguous() for c in _COLUMNS]
+    for name, col in zip(_COLUMNS, cols):
+        check_tensor(name, col, torch.float32, (s_count,), device)
     rays = [r.detach().contiguous() for r in (ox, oy, oz, dx, dy, dz)]
     n = rays[0].shape[0] if rays[0].dim() == 1 else -1
-    check_tensor("table", table, torch.float32, (NUM_INDEX_ROWS, s_count),
-                 device)
     check_rays(n, device, **dict(zip(("ox", "oy", "oz", "dx", "dy", "dz"),
                                      rays)))
     if device.type == "cpu":
-        return closest_hit_index_reference(table, *rays, t_min)
+        return closest_hit_index_reference(pack(prep), *rays, t_min)
     if device.type != "cuda":
         raise ValueError(f"closest_hit_index runs on cuda or cpu, not {device}")
-    check_table_fits(s_count, NUM_INDEX_ROWS)
     idx = torch.empty(n, dtype=torch.int32, device=device)
     hit = torch.empty(n, dtype=torch.bool, device=device)
     if n == 0:
         return idx, hit
-    err = _index_kernel()(table.data_ptr(), s_count,
+    err = _index_kernel()(*(c.data_ptr() for c in cols), s_count,
                           *(r.data_ptr() for r in rays), n, t_min,
                           idx.data_ptr(), hit.data_ptr(),
                           torch.cuda.current_stream(device).cuda_stream)

@@ -4,8 +4,10 @@
 `trace_respawn` is the counterpart of `trace_pallas_respawn`: every sample
 of every pixel traced to completion, returning per-pixel radiance sums and
 per-pixel ray counts in image order. `trace_oneshot` and `trace_topology`
-are the counterparts of `trace_pallas` without and with emit_topology: one
-thread per given primary ray, per-ray radiance and counts, and with
+are the counterparts of `trace_pallas` without and with emit_topology:
+every given primary ray (from 16 table rows up, each lane takes the next
+ray when its ray ends), per-ray radiance and counts in the caller's
+order, and with
 topology the winning sphere row of every bounce (the gradient path's
 forward). `trace_wavefront` is the counterpart of `trace_pallas_wavefront`:
 phases of bounces (`wavefront_phase`, one launch of the phase kernel each)
@@ -434,7 +436,7 @@ def _oneshot_kernel():
     fn = lib.rays1_oneshot_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, f, ctypes.c_uint32,
-                   f, f, f, p, p, p, p, p, p, p]
+                   f, f, f, p, p, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -468,9 +470,10 @@ def _oneshot(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
     cnt = torch.empty(n, dtype=torch.int32, device=device)
     topo = (torch.empty((cfg.max_bounces + 1, n), dtype=torch.int32,
                         device=device) if emit_topology else None)
-    total = torch.zeros(1, dtype=torch.int64, device=device)
+    # The 64-bit ray total, then the kernel's int32 ray counter: one fill.
+    scratch = torch.zeros(2, dtype=torch.int64, device=device)
     if n == 0:
-        return (rr, rg, rb), cnt, total[0], topo
+        return (rr, rg, rb), cnt, scratch[0], topo
     soft = cfg.soft_silhouette
     fn = _oneshot_kernel()
     err = fn(packed.data_ptr(), s_count, ox.data_ptr(), oy.data_ptr(),
@@ -479,11 +482,12 @@ def _oneshot(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
              cfg.t_min, cfg.seed, soft, f32(1.0 / soft) if soft else 0.0,
              near_cut(soft), rr.data_ptr(), rg.data_ptr(), rb.data_ptr(),
              cnt.data_ptr(), None if topo is None else topo.data_ptr(),
-             total.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+             scratch.data_ptr(), scratch.data_ptr() + 8,
+             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"oneshot kernel launch failed: cudaError {err}")
     ONESHOT_LAUNCHES += 1
-    return (rr, rg, rb), cnt, total[0], topo
+    return (rr, rg, rb), cnt, scratch[0], topo
 
 
 def trace_topology(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
@@ -506,7 +510,7 @@ def trace_topology(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
 
 def trace_oneshot(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
                   cfg: RenderConfig):
-    """Trace N given primary rays to completion, one thread per ray: the
+    """Trace N given primary rays to completion: the
     one-shot render engine (trace_pallas without topology). Same inputs as
     trace_topology; returns ((rr, rg, rb) float32[N], cnt int32[N], total
     int64 0-dim tensor). The kernel of csrc/oneshot.cu writes no topology

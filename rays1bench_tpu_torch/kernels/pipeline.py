@@ -12,7 +12,7 @@ tile_rays, unroll and sync_every (Mosaic and VPU tuning knobs with no
 meaning for a thread per pixel or ray); the cull option, since "sort_trim"
 was the only trim the JAX pipeline kept besides "none"
 (render_image_topology is the cull="none" case). The one-shot, wavefront
-and topology paths feed their kernel in ray-id order, one thread per ray:
+and topology paths feed their kernel in ray-id order:
 the slot order, slot_layout, _tile_coords, _slot_of_id, sync_every and
 unroll of the JAX paths are TPU workarounds. The power-of-two row trim
 stays: it is harmless and keeps the row count, and so the first-wins tie

@@ -270,6 +270,63 @@ def test_oneshot_kernel_equals_topology_kernel(cuda):
     assert all(torch.equal(a, b) for a, b in zip(rad, ref_rad))
 
 
+def oneshot_against_reference(packed, rays, ray_id, cfg):
+    """The topology kernel on these rays, held bit for bit against its
+    plain version; returns the per-ray counts."""
+    before = megakernel.ONESHOT_LAUNCHES
+    rad, cnt, total, topo = megakernel.trace_topology(packed, *rays, ray_id,
+                                                      cfg)
+    torch.cuda.synchronize()
+    assert megakernel.ONESHOT_LAUNCHES == before + 1
+    ref_rad, ref_cnt, ref_topo = megakernel.trace_topology_reference(
+        packed, *rays, ray_id, cfg)
+    assert torch.equal(topo, ref_topo) and torch.equal(cnt, ref_cnt)
+    assert all(torch.equal(a, b) for a, b in zip(rad, ref_rad))
+    assert int(total) == int(cnt.sum())
+    return cnt
+
+
+@pytest.mark.parametrize("case", ["N=1", "N=33", "all sky", "all padding",
+                                  "giant table"])
+def test_oneshot_kernel_edge_cases(cuda, case):
+    """One ray; a warp and one; rays that all miss at their first segment;
+    a list of padding ids only (never traced): on the small scene's 8 rows,
+    the per-ray nest; and the giant scene's 4,096-row table (114,688 B,
+    > 48 KB) through the flat loop."""
+    scene = "giant" if case == "giant table" else "small"
+    cfg, _, prep, rays, ray_id = grad_inputs(scene, 32, 16, 2, 6, 8, cuda)
+    packed = megakernel.pack_spheres(prep)
+    if case in ("N=1", "N=33"):
+        n = int(case[2:])
+        rays, ray_id = [r[:n].contiguous() for r in rays], ray_id[:n]
+    elif case == "all sky":
+        rays = rays[:3] + [torch.zeros_like(rays[0]), torch.ones_like(
+            rays[0]), torch.zeros_like(rays[0])]
+    elif case == "all padding":
+        ray_id = ray_id + cfg.num_primary_rays
+    cnt = oneshot_against_reference(packed, rays, ray_id, cfg)
+    if case == "all sky":
+        assert bool((cnt == 1).all())
+    if case == "all padding":
+        assert int(cnt.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("soft", [0.0, 0.005])
+def test_oneshot_topology_tails_when_lanes_refill(cuda, soft):
+    """Rays of many depths in a seeded order, so that the lanes of a warp
+    refill at different bounces (the medium scene's 48 rows take the flat
+    loop): every topology plane, the tails past each ray's end included,
+    equals the plain version's."""
+    cfg, _, prep, rays, ray_id = grad_inputs("medium", 64, 32, 2, 8, 8, cuda,
+                                             soft)
+    perm = torch.randperm(ray_id.numel(), device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(4))
+    cnt = oneshot_against_reference(
+        megakernel.pack_spheres(prep), [r[perm].contiguous() for r in rays],
+        ray_id[perm].contiguous(), cfg)
+    assert len(torch.unique(cnt)) >= 4
+
+
 @pytest.mark.parametrize("scene,pad,n", [("small", 8, 777),
                                          ("large", 128, 20_000),
                                          ("giant", 128, 3_001)])
@@ -292,6 +349,58 @@ def test_index_kernel_equals_plain_version(cuda, scene, pad, n):
         intersect_index.pack(prep), *o, *d, 1e-3)
     assert torch.equal(idx, ref_idx) and torch.equal(hit, ref_hit)
     assert 0 < int(hit.sum()) < n
+
+
+def sliced(prep, rows):
+    return dataclasses.replace(prep, **{
+        f.name: getattr(prep, f.name)[:rows].contiguous()
+        for f in dataclasses.fields(prep)})
+
+
+@pytest.mark.parametrize("rows", [1000, 1024, 1025, 4096])
+def test_index_kernel_across_tiles(cuda, rows):
+    """The giant scene's first rows, below, at and above one 1,024-row tile
+    of the kernel's shared memory, and all 4,096: the first minimum over
+    the tiles, bit for bit."""
+    soa = builders.SCENES["giant"](16 / 9, pad_multiple=8,
+                                   device=cuda).spheres
+    prep = sliced(prepare(soa), rows)
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    o = (torch.rand((3, 5000), generator=g, device=cuda) * 2 - 1) * 6
+    o[1] = o[1].abs() + 0.2
+    d = torch.randn((3, 5000), generator=g, device=cuda)
+    d = d / d.norm(dim=0)
+    idx, hit = intersect_index.closest_hit_index(prep, *o, *d, 1e-3)
+    ref_idx, ref_hit = intersect_index.closest_hit_index_reference(
+        intersect_index.pack(prep), *o, *d, 1e-3)
+    assert torch.equal(idx, ref_idx) and torch.equal(hit, ref_hit)
+    assert 0 < int(hit.sum()) < 5000
+    if rows > 1024:
+        assert int(idx.max()) >= 1024
+
+
+def test_index_call_launches_no_torch_op(cuda):
+    """On a CUDA tensor closest_hit_index launches its own kernel and
+    nothing else: the kernel builds its table from the prepared columns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rays1bench_tpu_torch.bench.grad import is_kernel
+    prep = prepare(builders.SCENES["medium"](16 / 9, pad_multiple=8,
+                                             device=cuda).spheres)
+    o = torch.rand((3, 4096), device=cuda) * 4 - 2
+    d = torch.randn((3, 4096), device=cuda)
+    d = d / d.norm(dim=0)
+    o[1] = o[1].abs() + 0.2
+    rays = [r.contiguous() for r in (*o, *d)]
+    intersect_index.closest_hit_index(prep, *rays, 1e-3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        intersect_index.closest_hit_index(prep, *rays, 1e-3)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all(is_kernel(n, "index_kernel") for n in names), names
 
 
 @pytest.mark.parametrize("mb,schedule", [(6, (2, 5)), (3, (2, 3, 6)),
