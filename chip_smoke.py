@@ -81,7 +81,11 @@
    counts, the lane occupancy a thread-per-ray loop nest would have on
    warps of 32 consecutive rays, beside the flat loop's time; then the
    frame's rays in a seeded order, each ray's outputs equal to the in-order
-   launch's.
+   launch's. Each phase's listed rays and ms, and the wavefront frame's
+   time less its phases beside the one-shot frame's less its kernel: the
+   difference is the listings' cost. Then the wavefront frame's phases
+   with each list in a seeded order (REFILL_SEED), each ray's radiance and
+   count equal to the in-order run's.
 13. Drives the multi-scene CLI at its defaults (small, medium, large, one
    run each, the one-shot engine) and parses each out_<scene>.txt.
 14. engine="pipeline" gradients with the index kernel and with the plain
@@ -1304,7 +1308,38 @@ def phases_vs_plain(label, packed, rays, ray_id, cfg, frame, n_frame):
           f"{sum(plain_ms):.1f} ms (chunks of {PLAIN_CHUNK}); every phase's "
           f"state, alive flags and counts equal; bound {bound[0]:.4f} ms "
           f"({bound[1]})", flush=True)
+    for (b0, bend), m, t in zip(spans, listed, ms):
+        print(f"[engines] {label}: phase [{b0}, {bend}): {m} rays listed, "
+              f"{t:.3f} ms", flush=True)
     return max(errs), sum(ms), sum(plain_ms), bound
+
+
+def phases_in_seeded_order(label, packed, rays, ray_id, cfg):
+    """The wavefront frame with each phase's list in a seeded order
+    (REFILL_SEED): the lanes take the rays in another order, and each ray's
+    radiance and count must equal the in-order run's."""
+    gen = torch.Generator(ray_id.device).manual_seed(REFILL_SEED)
+
+    def phase(packed, state, alive, ray_id, cnt, slots, b0, bend, cfg):
+        todo = (torch.arange(ray_id.numel(), dtype=torch.int32,
+                             device=ray_id.device) if slots is None
+                else slots)
+        perm = torch.randperm(todo.numel(), device=todo.device, generator=gen)
+        megakernel.wavefront_phase(packed, state, alive, ray_id, cnt,
+                                   todo[perm].contiguous(), b0, bend, cfg)
+
+    q_rad, q_cnt, q_total = megakernel._wavefront(phase, packed, *rays,
+                                                  ray_id, cfg, WAVEFRONT)
+    k_rad, k_cnt, k_total = megakernel.trace_wavefront(packed, *rays, ray_id,
+                                                       cfg, WAVEFRONT)
+    n_diff = sum(int((a != b).sum()) for a, b in zip((*q_rad, q_cnt),
+                                                      (*k_rad, k_cnt)))
+    if n_diff or int(q_total) != int(k_total):
+        raise AssertionError(f"{label}: the phases' lists in another order: "
+                             f"{n_diff} radiance values and counts differ")
+    print(f"[engines] {label}: the wavefront frame with each phase's list in "
+          f"a seeded order: every ray's radiance and count equal to the "
+          f"in-order run's", flush=True)
 
 
 def engines_full():
@@ -1359,6 +1394,11 @@ def engines_full():
           f"{bound[0] / k_ms:.3f} of its kernel's time, "
           f"{bound[0] / one_ms:.3f} of its frame's", flush=True)
     phase = phases_vs_plain(label, packed, rays, ray_id, cfg, wave, n_wave)
+    print(f"[engines] {label}: wavefront frame less its phases "
+          f"{wave_ms - phase[1]:.3f} ms, one-shot frame less its kernel "
+          f"{one_ms - k_ms:.3f} ms: the listings between phases take about "
+          f"{(wave_ms - phase[1]) - (one_ms - k_ms):.3f} ms", flush=True)
+    phases_in_seeded_order(label, packed, rays, ray_id, cfg)
     return launches + (one_err, phase)
 
 

@@ -9,7 +9,8 @@ one process.
 --kernels picks the kernels whose variants run. The default is the
 one-shot and index kernels, whose variants take the csrc of their
 redesign's parent, 5a43459, as --parent. The respawn and backward variants
-were written against the csrc of their own redesign's parent, 3290e84.
+were written against the csrc of their own redesign's parent, 3290e84,
+and the phase kernel's (--kernels phase) against d3f2684's.
 
 Each variant is a copy of kernels/csrc (or of the parent's sources, given
 by --parent) with a few lines replaced (VARIANTS), built into a temporary
@@ -49,6 +50,23 @@ variants answer the design questions of the two kernels:
   soft geometry recipe's whole "mega" training step with the tree's and
   the parent's one-shot library in turns, in one process (step_case).
 
+  phase, on the CLI frame's wavefront (large 1280x720 @ 10 spp @ 50 b,
+  schedule (2, 3, 6)), each phase from the same pre-phase state, which the
+  tree's kernel leaves through the wavefront engine's own loop: the parent
+  (a thread per listed ray and a block per 128 entries, each staging the
+  row-major table); the tree's kernel (the flat loop that refills its lanes
+  from the list counter, resident blocks, float4 hot rows); the tree's
+  per-ray nest (phase_ray, float4 sweep) for every table, over resident
+  blocks in a grid-stride loop (nest_float4) or a block per 128 entries
+  (nest_float4_blocks); a static share of list entries a lane instead of
+  the counter (static_stride); half the resident blocks (grid_half); the
+  flat loop for every table, 8 rows too (flat_all); the tree's kernel with
+  each phase's list in a seeded order (shuffled_lists);
+  and `rounds`, the tree's kernel adding 32 times its warps' loop rounds to
+  a second counter word, whose ratio to the bounces traced is the flat
+  loop's lane occupancy in each phase. Then the small scene's frame (8
+  rows: the tree takes the per-ray nest).
+
   intersect_index, on one chunk of the medium pipeline fit (131,072 primary
   rays x 48 rows) and the giant frame (1280x720 @ 4 spp x 4,096 rows): the
   parent (its call packs the table in torch, 128 threads a block, the
@@ -60,8 +78,11 @@ variants answer the design questions of the two kernels:
 Each kernel is timed in turns, every variant once in order and once in
 reverse order (the parent first and last): respawn frames between CUDA
 events, two a turn; backward, one-shot and index calls alone as
-bench.grad.launch_ms times them, five a turn (one-shot: three). Every variant's frame must equal the tree kernel's bit for
-bit (one-shot: radiance, counts, topology and total; index: idx and hit);
+bench.grad.launch_ms times them, five a turn (one-shot: three); phases
+alone, their buffers restored before each, three a turn. Every variant's
+frame must equal the tree kernel's bit for bit (one-shot: radiance,
+counts, topology and total; index: idx and hit; phase: state, alive flags
+and counts after every phase);
 every backward variant's ray cotangents must equal the parent's and its
 columns come within GRAD_TOL of them, except where the accumulation is
 removed. Prints one line per kernel and variant with the card's name and
@@ -81,10 +102,10 @@ import tempfile
 import numpy as np
 import torch
 
-from rays1bench_tpu_torch.bench.grad import (ALBEDOS, GEOMETRY, cuda_ms,
-                                             geometry_config, is_kernel,
-                                             launch_ms, moved_geometry,
-                                             perturb_albedos)
+from rays1bench_tpu_torch.bench.grad import (ALBEDOS, GEOMETRY, WAIT_CYCLES,
+                                             cuda_ms, geometry_config,
+                                             is_kernel, launch_ms,
+                                             moved_geometry, perturb_albedos)
 from rays1bench_tpu_torch.bench.profile import smi
 from rays1bench_tpu_torch.core.config import RenderConfig, get_config
 from rays1bench_tpu_torch.grad.inverse import (InverseConfig,
@@ -99,6 +120,7 @@ from rays1bench_tpu_torch.scene.spheres import prepare
 
 GRAD_TOL = 1e-3   # chip_smoke.GRAD_TOL
 HEADLINE = RenderConfig(width=1280, height=720, spp=250, max_bounces=50)
+WAVEFRONT = (2, 3, 6)   # chip_smoke.WAVEFRONT
 FIT = dict(width=1280, height=720, spp=4, max_bounces=10, early_exit=False)
 
 TILE = "constexpr int kWarpW = 8, kWarpH = 4;"
@@ -317,8 +339,8 @@ def pool_take(claim, static=False):
 ONE_RAY = """    auto take = [&](bool, int i) {
       return i < 0 ? (int)(blockIdx.x * kThreads + tid) : N;
     };"""
-GRID = ("  const int grid = S < kNestRows || blocks < resident ? blocks : "
-        "resident;")
+GRID = ("  const int grid =\n      S < r1b::kNestRows || blocks < resident "
+        "? blocks : resident;")
 BOUNDS = "__global__ void __launch_bounds__(kThreads)\noneshot_kernel("
 ANY = "    auto any = [](bool p) { return __any_sync(kFull, p) != 0; };"
 ROUNDS = """    auto any = [&](bool p) {
@@ -350,6 +372,35 @@ STAGE4 = PARENT_STAGE + """
     hot[s] = float4{spheres[s], spheres[S + s], spheres[2 * S + s],
                     spheres[3 * S + s]};"""
 PARENT_SMEM = "sizeof(float) * (r1b::kNumRows + (soft ? 1 : 0)) * (size_t)S;"
+
+def unindent(text):
+    """text two spaces to the left: the one-shot kernel's take and any lie
+    inside a branch, the phase kernel's not."""
+    return "\n".join(line[2:] for line in text.splitlines())
+
+
+PHASE_NEST = """  if (S < r1b::kNestRows) {
+    const int i = blockIdx.x * kThreads + tid;
+    if (i < M)
+      r1b::phase_ray(hot, pay, S, slots ? slots[i] : i, state, alive_io,
+                     ray_id, cnt_io, N, b0, bend, max_bounces, t_min, seed);
+    return;
+  }"""
+# Every table through the per-ray nest, a grid-stride loop of the resident
+# blocks over the list.
+PHASE_NEST_STRIDE = """  for (int i = blockIdx.x * kThreads + tid; i < M;
+       i += gridDim.x * kThreads)
+    r1b::phase_ray(hot, pay, S, slots ? slots[i] : i, state, alive_io,
+                   ray_id, cnt_io, N, b0, bend, max_bounces, t_min, seed);
+  return;"""
+PHASE_CALL = """  r1b::phase_lane(hot, pay, S, state, alive_io, ray_id, cnt_io, slots, M, N,
+                  b0, bend, max_bounces, t_min, seed, take, any);"""
+PHASE_ROUNDS = """  int rounds = 0;
+  auto any = [&](bool p) {
+    const bool r = __any_sync(kFull, p) != 0;
+    rounds += r ? 1 : 0;
+    return r;
+  };"""
 INDEX_TILE = "constexpr int kIndexTile = 1024;"
 INDEX_THREADS = "constexpr int kThreads = 512;"
 
@@ -411,6 +462,26 @@ VARIANTS = {
                              "  c = lane == 0 ? 32ull * rounds : 0ull;\n"
                              + REDUCE)]),
     ],
+    "phase": [
+        ("parent", "parent", []),
+        ("flat", "tree", []),
+        ("nest_float4", "tree", [("phase.cu", PHASE_NEST,
+                                  PHASE_NEST_STRIDE)]),
+        ("nest_float4_blocks", "tree", [
+            ("phase.cu", "  if (S < r1b::kNestRows) {", "  if (S >= 0) {"),
+            ("phase.cu", GRID, "  const int grid = blocks;")]),
+        ("static_stride", "tree", [("phase.cu", unindent(TAKE),
+                                    unindent(STRIDE))]),
+        ("grid_half", "tree", [("phase.cu", GRID, GRID.replace(
+            ": resident;", ": resident / 2;"))]),
+        ("flat_all", "tree", [
+            ("phase.cu", "  if (S < r1b::kNestRows) {", "  if (S < 0) {"),
+            ("phase.cu", GRID, GRID.replace("S < r1b::kNestRows || ", ""))]),
+        ("rounds", "tree", [
+            ("phase.cu", unindent(ANY), PHASE_ROUNDS),
+            ("phase.cu", PHASE_CALL, PHASE_CALL + "\n  if (lane == 0) "
+             "atomicAdd(work + 1, 32 * rounds);")]),
+    ],
     "intersect_index": [
         ("tiles512", "tree", []),
         ("parent", "parent", []),
@@ -423,7 +494,8 @@ VARIANTS = {
     ],
 }
 SOURCES = {"respawn": "respawn.cu", "mega_backward": "mega_backward.cu",
-           "oneshot": "oneshot.cu", "intersect_index": "intersect_index.cu"}
+           "oneshot": "oneshot.cu", "intersect_index": "intersect_index.cu",
+           "phase": "phase.cu"}
 
 
 def compile_variant(kernel, name, src_dir, subs, out_dir):
@@ -452,7 +524,7 @@ def compile_variant(kernel, name, src_dir, subs, out_dir):
 
 def loader(like, path, drop_counter):
     """A ctypes function of the library at path with like's signature; the
-    parent's backward and one-shot kernels take no counter, so their
+    parent's backward, one-shot and phase kernels take no counter, so their
     adapter drops it."""
     fn = getattr(ctypes.CDLL(path), like.__name__)
     fn.restype = ctypes.c_int
@@ -594,6 +666,107 @@ def step_case(label, scene_name, cfg, fns, rounds=5, steps=20):
               f"({', '.join(f'{x:.3f}' for x in t)})", flush=True)
 
 
+def phase_launch(fn, packed, bufs, ray_id, slots, b0, bend, cfg, work):
+    """One phase through the library fn on bufs = (state, alive, cnt), in
+    place, with the list counter (and rounds' word) in work."""
+    state, alive, cnt = bufs
+    m = ray_id.numel() if slots is None else slots.numel()
+    err = fn(packed.data_ptr(), packed.shape[1], state.data_ptr(),
+             alive.data_ptr(), ray_id.data_ptr(), cnt.data_ptr(),
+             None if slots is None else slots.data_ptr(), m, ray_id.numel(),
+             b0, bend, cfg.max_bounces, cfg.t_min, cfg.seed, work.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"phase kernel launch failed: cudaError {err}")
+
+
+def phase_case(label, scene_name, fns, reps=3):
+    """A CLI frame's wavefront phases through every phase variant in turns,
+    each phase from the pre-phase state that the tree's kernel left through
+    megakernel._wavefront, and through the tree's kernel with each list in a
+    seeded order (shuffled_lists); every variant's state, alive flags and
+    counts must equal the tree kernel's after every phase. Each library is
+    called once before the turns (its module loads at its first launch).
+    Prints ms per phase and their sum for each variant, and rounds' lane
+    occupancy per phase."""
+    cfg = get_config("full")
+    scene = builders.SCENES[scene_name](cfg.aspect, device="cuda")
+    packed = megakernel.pack_spheres(prepare_trimmed(scene.spheres,
+                                                     scene.n_real))
+    ray_id, x, y = ray_coords(cfg, "cuda")
+    rays = [r.contiguous() for r in primary_rays(scene.camera.build("cuda"),
+                                                 cfg, x, y, ray_id)]
+    pre, post = [], []
+
+    def keep(packed, state, alive, ray_id, cnt, slots, b0, bend, cfg):
+        pre.append(([t.clone() for t in (state, alive, cnt)], slots, b0,
+                    bend))
+        megakernel.wavefront_phase(packed, state, alive, ray_id, cnt, slots,
+                                   b0, bend, cfg)
+        post.append([t.clone() for t in (state, alive, cnt)])
+
+    megakernel._wavefront(keep, packed, *rays, ray_id, cfg, WAVEFRONT)
+    bufs = [t.clone() for t in pre[0][0]]
+    work = torch.zeros(2, dtype=torch.int32, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(12)
+    shuffled = []
+    for _, slots, _, _ in pre:
+        todo = (torch.arange(ray_id.numel(), dtype=torch.int32,
+                             device="cuda") if slots is None else slots)
+        shuffled.append(todo[torch.randperm(todo.numel(), device="cuda",
+                                            generator=gen)].contiguous())
+    fns = dict(fns, shuffled_lists=fns["flat"])
+    for name, fn in fns.items():
+        for b, s in zip(bufs, pre[0][0]):
+            b.copy_(s)
+        work.zero_()
+        phase_launch(fn, packed, bufs, ray_id, pre[0][1], *pre[0][2:], cfg,
+                     work)
+    torch.cuda.synchronize()
+    ms = {n: [[] for _ in pre] for n in fns}
+    rounds = [0] * len(pre)
+    for name in turns(list(fns)):
+        for k, (start, slots, b0, bend) in enumerate(pre):
+            if name == "shuffled_lists":
+                slots = shuffled[k]
+            for _ in range(reps):
+                for b, s in zip(bufs, start):
+                    b.copy_(s)
+                work.zero_()
+                torch.cuda.synchronize()
+                begin = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(WAIT_CYCLES)
+                begin.record()
+                phase_launch(fns[name], packed, bufs, ray_id, slots, b0, bend,
+                             cfg, work)
+                end.record()
+                end.synchronize()
+                ms[name][k].append(begin.elapsed_time(end))
+            if not all(torch.equal(a, b) for a, b in zip(bufs, post[k])):
+                raise AssertionError(f"phase {name}: phase {k} differs from "
+                                     f"the tree kernel's")
+            if name == "rounds":
+                rounds[k] = int(work[1])
+    spans = [(b0, bend) for _, _, b0, bend in pre]
+    listed = [ray_id.numel() if s is None else s.numel() for _, s, _, _ in pre]
+    bounces = [int((p[2] - s[0][2]).sum(dtype=torch.int64))
+               for p, s in zip(post, pre)]
+    print(f"[variants] phase {label} (1280x720 @ 10 @ 50, "
+          f"{packed.shape[1]} rows), spans {spans}, rays listed {listed}, "
+          f"bounces traced {bounces}", flush=True)
+    for name, per in ms.items():
+        medians = [float(np.median(t)) for t in per]
+        occ = (", lane occupancy " + ", ".join(
+            f"{b / r:.4f}" for b, r in zip(bounces, rounds))
+            if name == "rounds" and all(rounds) else "")
+        print(f"[variants] phase {label}, {name}: "
+              + "; ".join(f"[{b0}, {bend}) {', '.join(f'{x:.3f}' for x in t)}"
+                          for (b0, bend), t in zip(spans, per))
+              + f" ms; sum of medians {sum(medians):.3f} ms" + occ,
+              flush=True)
+
+
 def index_call(fn, parent, prep, rays, t_min):
     """closest_hit_index through the library fn: the tree's kernel reads the
     prepared columns; the parent's takes the (4, S) table that its wrapper
@@ -716,6 +889,13 @@ def main(argv=None):
                   RenderConfig(**FIT, seed=5), pair)
         step_case("small soft geometry recipe (1280x720 @ 4 @ 10, soft "
                   "0.005)", "small", soft_small, pair)
+    if "phase" in libs:
+        like = megakernel._phase_kernel()
+        fns = {n: loader(like, p, n == "parent")
+               for n, p in libs["phase"].items()}
+        phase_case("CLI wavefront frame, large", "large", fns)
+        phase_case("CLI wavefront frame, small (the per-ray nest)", "small",
+                   fns)
     if "intersect_index" in libs:
         like = intersect_index._index_kernel()
         fns = {}

@@ -19,7 +19,7 @@
 // the nest keeps ~0.4 of its lanes busy there). The body keeps one path to the
 // back-edge, with selects and predicated loads and stores: with a branch
 // around the refill, nvcc splits such a loop back into a nest (respawn.cu).
-// Tables of fewer than kNestRows rows (the small scene's 8) take
+// Tables of fewer than r1b::kNestRows rows (the small scene's 8) take
 // r1b::oneshot_ray instead, a thread per ray and a block per 128 rays:
 // there a segment's sweep is short, and the flat loop's refill and its
 // unconditional record and scatter, run by every lane every round, cost
@@ -71,9 +71,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-// Tables of fewer rows take r1b::oneshot_ray, a thread per ray; the flat
-// loop won from 48 rows up and lost at 8 (bench.variants).
-constexpr int kNestRows = 16;
 
 template <bool kSoft>
 __global__ void __launch_bounds__(kThreads)
@@ -102,7 +99,7 @@ oneshot_kernel(const float* __restrict__ spheres, int S,
   __syncthreads();
 
   unsigned long long c = 0;
-  if (S < kNestRows) {
+  if (S < r1b::kNestRows) {
     const int i = blockIdx.x * kThreads + tid;
     if (i < N)
       c = r1b::oneshot_ray<kSoft>(hot, pay, S, i, ox_in, oy_in, oz_in, dx_in,
@@ -168,7 +165,8 @@ extern "C" int rays1_oneshot_launch(
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N + kThreads - 1) / kThreads;
   const int resident = sms * (per_sm > 0 ? per_sm : 1);
-  const int grid = S < kNestRows || blocks < resident ? blocks : resident;
+  const int grid =
+      S < r1b::kNestRows || blocks < resident ? blocks : resident;
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       spheres, S, ox, oy, oz, dx, dy, dz, ray_id, N, n_rays, max_bounces,
       t_min, seed, inv_eps, near_cut, rr, rg, rb, cnt, topo, total, work);

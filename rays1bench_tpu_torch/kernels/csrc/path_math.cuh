@@ -1,10 +1,10 @@
 // Per-ray math shared by the port's path-tracing kernels: the counter-hash
 // RNG lattice, the samplers, thin-lens raygen, the dense closest-hit sweep
-// over the packed sphere table (and over the broadcast layout of the
-// respawn and one-shot kernels), its unpack, the soft-silhouette mode's
-// graze sweep and soft record, material scatter, the sky, the respawn and
-// one-shot kernels' whole lanes (respawn_pixel, oneshot_lane) and the index
-// kernel's tiled sweep (index_tiles).
+// over the broadcast layout of the sphere table (float4 hot rows), its
+// unpack, the soft-silhouette mode's graze sweep and soft record, material
+// scatter, the sky, the respawn, one-shot and phase kernels' whole lanes
+// (respawn_pixel, oneshot_lane, phase_lane) and the index kernel's tiled
+// sweep (index_tiles).
 //
 // Each function computes exactly what its plain PyTorch counterpart computes
 // (rays1bench_tpu_torch/core/rng.py, core/vecmath.py, render/camera.py,
@@ -167,43 +167,15 @@ __device__ __forceinline__ void generate_ray(const float* cam, float s,
 enum Row { kCX = 0, kCY, kCZ, kRSQ, kINVR, kALB, kMTP, kNumRows };
 
 // Dense closest-hit sweep over all S rows, first minimum wins
-// (megakernel._make_intersect, hard mode). Returns the winning row, or -1;
-// bt is the winning root (+inf with no candidate). A miss needs no mask:
-// placeholder rows carry radius_sq = -1e30, so their discriminant is
-// negative, sqrtf gives NaN and every comparison with NaN is false. Rows
-// with a negative discriminant are skipped before the square root; that
-// changes no result, since they could not win.
-__device__ __forceinline__ int sweep(const float* sph, int S, float t_min,
-                                     float ox, float oy, float oz, float dx,
-                                     float dy, float dz, float& bt) {
-  bt = __int_as_float(0x7f800000);  // +inf
-  int best = -1;
-  for (int s = 0; s < S; ++s) {
-    float cox = sph[kCX * S + s] - ox;
-    float coy = sph[kCY * S + s] - oy;
-    float coz = sph[kCZ * S + s] - oz;
-    float nb = cox * dx + coy * dy + coz * dz;
-    float c = cox * cox + coy * coy + coz * coz - sph[kRSQ * S + s];
-    float disc = nb * nb - c;
-    if (disc < 0.0f) continue;
-    float sq = sqrtf(disc);
-    float t1 = nb - sq;
-    float t2 = nb + sq;
-    float t = t1 > t_min ? t1 : t2;
-    if (t < bt && t > t_min) {
-      bt = t;
-      best = s;
-    }
-  }
-  return best;
-}
-
-// The same sweep over the respawn kernel's broadcast layout: the hot rows
-// interleaved as float4 {cx, cy, cz, radius_sq}, one 128-bit shared load per
-// sphere that every lane of a warp reads at once, unrolled kSweepUnroll
-// times. The same float operations in the same order as `sweep`, so the
-// same winner and root bit for bit. The respawn and one-shot kernels sweep
-// this layout; the phase kernel keeps `sweep` over the row-major table.
+// (megakernel._make_intersect, hard mode), over the broadcast layout of
+// stage_row: the hot rows interleaved as float4 {cx, cy, cz, radius_sq}, one
+// 128-bit shared load per sphere that every lane of a warp reads at once,
+// unrolled kSweepUnroll times. Returns the winning row, or -1; bt is the
+// winning root (+inf with no candidate). A miss needs no mask: placeholder
+// rows carry radius_sq = -1e30, so their discriminant is negative, sqrtf
+// gives NaN and every comparison with NaN is false. Rows with a negative
+// discriminant are skipped before the square root; that changes no result,
+// since they could not win.
 constexpr int kSweepUnroll = 8;
 
 __device__ __forceinline__ int sweep4(const float4* hot, int S, float t_min,
@@ -285,17 +257,6 @@ __device__ __forceinline__ Hit decode_hit(float cx, float cy, float cz,
   h.nz = (h.pz - cz) * ivr;
   decode_material(albp, mtp, h);
   return h;
-}
-
-// decode_hit of row `best` of the row-major table.
-__device__ __forceinline__ Hit unpack_hit(const float* sph, int S, int best,
-                                          float t, float ox, float oy,
-                                          float oz, float dx, float dy,
-                                          float dz) {
-  return decode_hit(sph[kCX * S + best], sph[kCY * S + best],
-                    sph[kCZ * S + best], sph[kINVR * S + best],
-                    sph[kALB * S + best], sph[kMTP * S + best], t, ox, oy,
-                    oz, dx, dy, dz);
 }
 
 // decode_hit of row `best` of the broadcast layout (stage_row).
@@ -586,6 +547,12 @@ __device__ __forceinline__ int respawn_pixel(
 
 // ---- the one-shot kernel's lane (oneshot.cu) --------------------------------
 
+// Tables of fewer rows take a thread per ray (oneshot_ray, phase_ray), in
+// the one-shot and phase kernels alike; from kNestRows rows up, the flat
+// loop (oneshot_lane, phase_lane). The flat loop won from 48 rows up and
+// lost at 8 (bench.variants).
+constexpr int kNestRows = 16;
+
 // Every ray a lane is handed, as one flat loop of segments
 // (megakernel._kernel's per-bounce step): count the segment, sweep (in soft
 // mode also the graze sweep and the promotion), record the topology plane,
@@ -849,6 +816,204 @@ __device__ __forceinline__ int oneshot_ray(
   rb_out[i] = rb;
   cnt_out[i] = cnt;
   return cnt;
+}
+
+// ---- the phase kernel's lane (phase.cu) ------------------------------------
+
+// Float planes of the wavefront state, (12, N) row-major: ox oy oz dx dy dz
+// ar ag ab rr rg rb.
+constexpr int kStatePlanes = 12;
+
+// Every list entry a lane is handed, as one flat loop of segments
+// (megakernel._phase_kernel's per-bounce step from absolute bounce b0):
+// count the bounce, sweep, add the sky on a miss, scatter, then continue
+// while hit & ok & b < max_bounces and b + 1 < lim = min(bend,
+// max_bounces + 1). List entry j names the ray at slot r = slots[j] (r = j
+// without a slot list); the lane reads that ray's state, alive flag and id
+// at r. A ray that ends in this phase, dead or alive at its span's end,
+// writes its 12 state floats and its alive flag back at r and adds the
+// bounces it counted to cnt_io[r]; the lane then takes its next list index
+// from take(need, j) and loads that ray, so that it is not left idle while
+// the rest of its warp traces deeper rays. take and any are oneshot_lane's
+// (any index >= M when the list is used up).
+//
+// A taken ray starts at bounce b0 with a count of 0: b is reset on every
+// refill, not carried, and the RNG is keyed on the absolute bounce, so a
+// ray's state does not depend on the schedule. A listed ray that is dead on
+// arrival (or a span that the budget has used up) takes one segment that
+// counts nothing and writes nothing. Per-ray arithmetic and its order are
+// those of wavefront_phase_reference, so the state is equal to it bit for
+// bit whichever lane takes which entry.
+//
+// The body keeps one path to the back-edge, as oneshot_lane does: every
+// lane unpacks and scatters (a miss unpacks row 0 and discards it), and
+// selects merge the refilled ray and the bounce's result into the lane's
+// state. The refill's loads and the ended ray's stores are predicated.
+template <class Take, class Any>
+__device__ __forceinline__ void phase_lane(
+    const float4* hot, const float* pay, int S, float* state,
+    uint8_t* alive_io, const int* ray_id, int* cnt_io, const int* slots,
+    int M, int N, int b0, int bend, int max_bounces, float t_min,
+    uint32_t seed, Take take, Any any) {
+  const int lim = bend < max_bounces + 1 ? bend : max_bounces + 1;
+  int j = -1, r = 0, b = b0, cnt = 0;
+  bool cont = false, live = false;
+  uint32_t rid = 0;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float ar = 0.0f, ag = 0.0f, ab = 0.0f, rr = 0.0f, rg = 0.0f, rb = 0.0f;
+  for (;;) {
+    const bool need = !cont && j < M;
+    const int next = take(need, j);
+    j = need ? next : j;
+    const bool fresh = need && j < M;
+    int nr = 0, nrid = 0;
+    bool nlive = false;
+    float nox = 0.0f, noy = 0.0f, noz = 0.0f;
+    float ndx = 0.0f, ndy = 0.0f, ndz = 0.0f;
+    float nar = 0.0f, nag = 0.0f, nab = 0.0f;
+    float nrr = 0.0f, nrg = 0.0f, nrb = 0.0f;
+    if (fresh) {
+      nr = slots ? slots[j] : j;
+      nox = state[0 * (size_t)N + nr];
+      noy = state[1 * (size_t)N + nr];
+      noz = state[2 * (size_t)N + nr];
+      ndx = state[3 * (size_t)N + nr];
+      ndy = state[4 * (size_t)N + nr];
+      ndz = state[5 * (size_t)N + nr];
+      nar = state[6 * (size_t)N + nr];
+      nag = state[7 * (size_t)N + nr];
+      nab = state[8 * (size_t)N + nr];
+      nrr = state[9 * (size_t)N + nr];
+      nrg = state[10 * (size_t)N + nr];
+      nrb = state[11 * (size_t)N + nr];
+      nlive = alive_io[nr] != 0;
+      nrid = ray_id[nr];
+    }
+    r = cont ? r : nr;
+    ox = cont ? ox : nox;
+    oy = cont ? oy : noy;
+    oz = cont ? oz : noz;
+    dx = cont ? dx : ndx;
+    dy = cont ? dy : ndy;
+    dz = cont ? dz : ndz;
+    ar = cont ? ar : nar;
+    ag = cont ? ag : nag;
+    ab = cont ? ab : nab;
+    rr = cont ? rr : nrr;
+    rg = cont ? rg : nrg;
+    rb = cont ? rb : nrb;
+    rid = cont ? rid : (uint32_t)nrid;
+    live = cont ? live : nlive;
+    cnt = cont ? cnt : 0;
+    b = cont ? b : b0;
+    if (!any(j < M)) break;
+
+    const bool run = live && b < lim;
+    cnt += run ? 1 : 0;
+    float bt;
+    const int best = sweep4(hot, S, t_min, ox, oy, oz, dx, dy, dz, bt);
+    // hit = bt < float32(3e38), megakernel._closest_hit_record
+    const bool hit = run && bt < 0x1.c363ccp+127f;
+    const bool sky = run && !hit;
+    float skr, skg, skb;
+    sky_color(dy, skr, skg, skb);
+    rr = sky ? rr + ar * skr : rr;
+    rg = sky ? rg + ag * skg : rg;
+    rb = sky ? rb + ab * skb : rb;
+    const Hit h = unpack_hit4(hot, pay, S, hit ? best : 0, bt, ox, oy, oz, dx,
+                              dy, dz);
+    float sx, sy, sz;
+    const bool ok = scatter(h, dx, dy, dz, seed, rid, (uint32_t)b, sx, sy,
+                            sz);
+    const bool adv = hit && ok && b < max_bounces;
+    ox = adv ? h.px : ox;
+    oy = adv ? h.py : oy;
+    oz = adv ? h.pz : oz;
+    dx = adv ? sx : dx;
+    dy = adv ? sy : dy;
+    dz = adv ? sz : dz;
+    ar = adv ? ar * h.albedo_x : ar;
+    ag = adv ? ag * h.albedo_y : ag;
+    ab = adv ? ab * h.albedo_z : ab;
+    live = run ? adv : live;
+    b = b + 1;
+    cont = adv && b < lim;
+    if (!cont && j < M && cnt > 0) {
+      state[0 * (size_t)N + r] = ox;
+      state[1 * (size_t)N + r] = oy;
+      state[2 * (size_t)N + r] = oz;
+      state[3 * (size_t)N + r] = dx;
+      state[4 * (size_t)N + r] = dy;
+      state[5 * (size_t)N + r] = dz;
+      state[6 * (size_t)N + r] = ar;
+      state[7 * (size_t)N + r] = ag;
+      state[8 * (size_t)N + r] = ab;
+      state[9 * (size_t)N + r] = rr;
+      state[10 * (size_t)N + r] = rg;
+      state[11 * (size_t)N + r] = rb;
+      alive_io[r] = live ? 1 : 0;
+      cnt_io[r] += cnt;
+    }
+  }
+}
+
+// The ray at slot r advanced through the phase a bounce at a time, a thread
+// per listed ray, with the per-ray arithmetic of phase_lane: the phase
+// kernel's path for tables of fewer than kNestRows rows, as oneshot_ray is
+// the one-shot kernel's. A ray dead on arrival is not written.
+__device__ __forceinline__ void phase_ray(
+    const float4* hot, const float* pay, int S, int r, float* state,
+    uint8_t* alive_io, const int* ray_id, int* cnt_io, int N, int b0,
+    int bend, int max_bounces, float t_min, uint32_t seed) {
+  bool alive = alive_io[r] != 0;
+  if (!alive) return;
+  const uint32_t rid = (uint32_t)ray_id[r];
+  float ox = state[0 * (size_t)N + r], oy = state[1 * (size_t)N + r],
+        oz = state[2 * (size_t)N + r];
+  float dx = state[3 * (size_t)N + r], dy = state[4 * (size_t)N + r],
+        dz = state[5 * (size_t)N + r];
+  float ar = state[6 * (size_t)N + r], ag = state[7 * (size_t)N + r],
+        ab = state[8 * (size_t)N + r];
+  float rr = state[9 * (size_t)N + r], rg = state[10 * (size_t)N + r],
+        rb = state[11 * (size_t)N + r];
+  int cnt = 0;
+  for (int b = b0; b <= max_bounces && b < bend && alive; ++b) {
+    ++cnt;
+    float bt;
+    const int best = sweep4(hot, S, t_min, ox, oy, oz, dx, dy, dz, bt);
+    if (!(bt < 0x1.c363ccp+127f)) {
+      float skr, skg, skb;
+      sky_color(dy, skr, skg, skb);
+      rr = rr + ar * skr;
+      rg = rg + ag * skg;
+      rb = rb + ab * skb;
+      alive = false;
+    } else {
+      const Hit h = unpack_hit4(hot, pay, S, best, bt, ox, oy, oz, dx, dy,
+                                dz);
+      float sx, sy, sz;
+      const bool ok = scatter(h, dx, dy, dz, seed, rid, (uint32_t)b, sx, sy,
+                              sz);
+      if (ok && b < max_bounces) {
+        ox = h.px;
+        oy = h.py;
+        oz = h.pz;
+        dx = sx;
+        dy = sy;
+        dz = sz;
+        ar = ar * h.albedo_x;
+        ag = ag * h.albedo_y;
+        ab = ab * h.albedo_z;
+      } else {
+        alive = false;
+      }
+    }
+  }
+  const float out[kStatePlanes] = {ox, oy, oz, dx, dy, dz,
+                                   ar, ag, ab, rr, rg, rb};
+  for (int k = 0; k < kStatePlanes; ++k) state[k * (size_t)N + r] = out[k];
+  alive_io[r] = alive ? 1 : 0;
+  cnt_io[r] += cnt;
 }
 
 // ---- the closest-hit index sweep (intersect_index.cu) -----------------------

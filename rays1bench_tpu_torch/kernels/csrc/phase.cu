@@ -2,12 +2,12 @@
 // engine's kernel.
 //
 // Replaces the Pallas kernel rays1bench_tpu/kernels/megakernel.py
-// `_phase_kernel` (launched by `trace_pallas_wavefront`), hard mode. Each
-// thread takes one ray of the slot list, reads its carried state (origin,
-// direction, attenuation, radiance: 12 float planes), its alive flag and
-// its global id, and advances it from absolute bounce b0 while b <=
-// max_bounces, b < bend and the ray is alive. It writes the state and the
-// alive flag back in place and adds the bounces it counted to the ray's
+// `_phase_kernel` (launched by `trace_pallas_wavefront`), hard mode. Every
+// ray of the slot list has its carried state (origin, direction,
+// attenuation, radiance: 12 float planes), its alive flag and its global id
+// read at its slot, and advances from absolute bounce b0 while b <=
+// max_bounces, b < bend and the ray is alive. The state and the alive flag
+// are written back in place and the bounces counted are added to the ray's
 // count. Plain version and wrapper: rays1bench_tpu_torch/kernels/
 // megakernel.py (`wavefront_phase_reference`, `wavefront_phase`).
 //
@@ -18,17 +18,38 @@
 // radiance and count do not depend on the schedule.
 //
 // Design. The slot list is the compaction: between phases the wrapper lists
-// the live rays (a stable partition, slot order kept), and the next phase
-// launches one thread per listed ray, which reads and writes that ray's
-// state where it lies. The state never moves, so the output is in input
-// slot order with no unpermute. The Pallas kernel compacts whole 128-lane
-// rows by argsort because per-ray compaction was too slow on the TPU; a
-// GPU thread retires on its own, and a warp then holds only live rays at
-// the start of a phase. A null slot list means every ray, slot i = i.
+// the live rays (a stable partition, slot order kept), and each ray's state
+// is read and written where it lies, so no state moves and the output
+// needs no unpermute. (The Pallas kernel compacts whole 128-lane rows by
+// argsort because per-ray compaction was too slow on the TPU.) A null slot
+// list means every ray, slot j = j.
 //
-// What bounds it: FP32 issue in the S-long sweep, as in oneshot.cu; per
-// phase each listed ray also moves its 12-float state in and out (104 B with
-// the id, flag and count).
+// Each thread runs r1b::phase_lane (path_math.cuh): one flat loop of
+// segments in which a ray that ends (dies, or reaches bend alive) hands its
+// lane the next list entry, so that a warp runs as long as its busiest
+// lane's share of bounces, not, as a thread per listed ray does, as long as
+// the deepest of its 32 rays (the CLI frame's last span, bounces 5 to 50,
+// holds its deep glass and metal paths). The next entry comes from
+// a counter in device memory that the wrapper zeroes: the warp's lanes that
+// need a ray vote, one lane adds their number to the counter, and each
+// takes the old value plus its rank among them (oneshot.cu). The body keeps
+// one path to the back-edge, with selects and predicated loads and stores:
+// with a branch around the refill, nvcc splits such a loop back into a
+// nest (respawn.cu). The launch runs as many blocks as the card holds at
+// once, so each block stages the table once per phase, not once per 128
+// listed rays. Tables of fewer than r1b::kNestRows rows take
+// r1b::phase_ray instead, a thread per listed ray and a block per 128
+// entries, as the one-shot kernel does (there the flat loop's refill and
+// its unconditional unpack and scatter cost more than the idle lanes they
+// save).
+//
+// What bounds it: FP32 issue in the S-long closest-hit sweep, as in
+// oneshot.cu. The (7, S) table is staged in dynamic shared memory in the
+// broadcast layout of r1b::stage_row (float4 {cx, cy, cz, radius_sq} rows,
+// one LDS.128 per sphere that every lane of the warp reads at once, and the
+// payload rows apart) and swept by r1b::sweep4, unrolled 8 times. Per phase
+// each listed ray also moves its 12-float state in and out (104 B with the
+// id, slot, flag and count).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,92 +58,72 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kStatePlanes = 12;  // ox oy oz dx dy dz ar ag ab rr rg rb
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __global__ void __launch_bounds__(kThreads)
 phase_kernel(const float* __restrict__ spheres, int S,
              float* __restrict__ state, uint8_t* __restrict__ alive_io,
              const int* __restrict__ ray_id, int* __restrict__ cnt_io,
              const int* __restrict__ slots, int M, int N, int b0, int bend,
-             int max_bounces, float t_min, uint32_t seed) {
-  extern __shared__ float sph[];
-  for (int i = threadIdx.x; i < r1b::kNumRows * S; i += kThreads)
-    sph[i] = spheres[i];
+             int max_bounces, float t_min, uint32_t seed,
+             int* __restrict__ work) {
+  extern __shared__ float4 hot[];  // (S) float4, then (3, S) payload
+  float* pay = reinterpret_cast<float*>(hot + S);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int s = tid; s < S; s += kThreads)
+    r1b::stage_row(spheres, S, s, hot, pay);
   __syncthreads();
 
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= M) return;
-  const int r = slots ? slots[i] : i;
-  bool alive = alive_io[r] != 0;
-  if (!alive) return;
-  const uint32_t rid = (uint32_t)ray_id[r];
-  float ox = state[0 * (size_t)N + r], oy = state[1 * (size_t)N + r],
-        oz = state[2 * (size_t)N + r];
-  float dx = state[3 * (size_t)N + r], dy = state[4 * (size_t)N + r],
-        dz = state[5 * (size_t)N + r];
-  float ar = state[6 * (size_t)N + r], ag = state[7 * (size_t)N + r],
-        ab = state[8 * (size_t)N + r];
-  float rr = state[9 * (size_t)N + r], rg = state[10 * (size_t)N + r],
-        rb = state[11 * (size_t)N + r];
-  int cnt = 0;
-  for (int b = b0; b <= max_bounces && b < bend && alive; ++b) {
-    ++cnt;
-    float bt;
-    const int best = r1b::sweep(sph, S, t_min, ox, oy, oz, dx, dy, dz, bt);
-    // hit = bt < float32(3e38), megakernel._closest_hit_record
-    if (!(bt < 0x1.c363ccp+127f)) {
-      float skr, skg, skb;
-      r1b::sky_color(dy, skr, skg, skb);
-      rr = rr + ar * skr;
-      rg = rg + ag * skg;
-      rb = rb + ab * skb;
-      alive = false;
-    } else {
-      const r1b::Hit h =
-          r1b::unpack_hit(sph, S, best, bt, ox, oy, oz, dx, dy, dz);
-      float sx, sy, sz;
-      const bool ok =
-          r1b::scatter(h, dx, dy, dz, seed, rid, (uint32_t)b, sx, sy, sz);
-      if (ok && b < max_bounces) {
-        ox = h.px;
-        oy = h.py;
-        oz = h.pz;
-        dx = sx;
-        dy = sy;
-        dz = sz;
-        ar = ar * h.albedo_x;
-        ag = ag * h.albedo_y;
-        ab = ab * h.albedo_z;
-      } else {
-        alive = false;
-      }
-    }
+  if (S < r1b::kNestRows) {
+    const int i = blockIdx.x * kThreads + tid;
+    if (i < M)
+      r1b::phase_ray(hot, pay, S, slots ? slots[i] : i, state, alive_io,
+                     ray_id, cnt_io, N, b0, bend, max_bounces, t_min, seed);
+    return;
   }
-  const float out[kStatePlanes] = {ox, oy, oz, dx, dy, dz,
-                                   ar, ag, ab, rr, rg, rb};
-  for (int k = 0; k < kStatePlanes; ++k) state[k * (size_t)N + r] = out[k];
-  alive_io[r] = alive ? 1 : 0;
-  cnt_io[r] += cnt;
+  auto take = [&](bool need, int) {
+    const unsigned m = __ballot_sync(kFull, need);
+    int base = 0;
+    if (lane == 0 && m) base = atomicAdd(work, __popc(m));
+    base = __shfl_sync(kFull, base, 0);
+    return base + __popc(m & ((1u << lane) - 1u));
+  };
+  auto any = [](bool p) { return __any_sync(kFull, p) != 0; };
+  r1b::phase_lane(hot, pay, S, state, alive_io, ray_id, cnt_io, slots, M, N,
+                  b0, bend, max_bounces, t_min, seed, take, any);
 }
 
 }  // namespace
 
-// Launch on `stream`; returns the cudaError_t of the attribute call or the
-// launch (0 on success). state is (12, N) row-major, alive uint8[N], ray_id
-// and cnt int32[N], all updated in place for the M rays of `slots` (int32
-// slot indices, or null for slots 0..M-1 with M == N); M > 0.
+// Launch on `stream`; returns the cudaError_t of the attribute or occupancy
+// query or of the launch (0 on success). state is (12, N) row-major, alive
+// uint8[N], ray_id and cnt int32[N], all updated in place for the M rays of
+// `slots` (int32 slot indices, or null for slots 0..M-1 with M == N);
+// the list counter *work must be zero on entry; M > 0.
 extern "C" int rays1_phase_launch(const float* spheres, int S, float* state,
                                   uint8_t* alive, const int* ray_id, int* cnt,
                                   const int* slots, int M, int N, int b0,
                                   int bend, int max_bounces, float t_min,
-                                  uint32_t seed, void* stream) {
+                                  uint32_t seed, int* work, void* stream) {
   const size_t smem = sizeof(float) * r1b::kNumRows * (size_t)S;
   cudaError_t err = cudaFuncSetAttribute(
       phase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, phase_kernel,
+                                                        kThreads, smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (M + kThreads - 1) / kThreads;
+  const int blocks = (M + kThreads - 1) / kThreads;
+  const int resident = sms * (per_sm > 0 ? per_sm : 1);
+  const int grid =
+      S < r1b::kNestRows || blocks < resident ? blocks : resident;
   phase_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       spheres, S, state, alive, ray_id, cnt, slots, M, N, b0, bend,
-      max_bounces, t_min, seed);
+      max_bounces, t_min, seed, work);
   return (int)cudaGetLastError();
 }

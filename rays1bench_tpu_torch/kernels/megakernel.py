@@ -10,9 +10,10 @@ ray when its ray ends), per-ray radiance and counts in the caller's
 order, and with
 topology the winning sphere row of every bounce (the gradient path's
 forward). `trace_wavefront` is the counterpart of `trace_pallas_wavefront`:
-phases of bounces (`wavefront_phase`, one launch of the phase kernel each)
-with the live rays listed between phases. On a CUDA tensor each launches
-its kernel (csrc/respawn.cu, csrc/oneshot.cu, csrc/phase.cu, built by
+phases of bounces (`wavefront_phase`, one launch of the phase kernel
+each; from 16 table rows up, each lane takes the next listed ray when its
+ray ends) with the live rays listed between phases. On a CUDA tensor each
+launches its kernel (csrc/respawn.cu, csrc/oneshot.cu, csrc/phase.cu, built by
 kernels/build.py); on a CPU tensor it runs its plain torch version
 (`trace_respawn_reference`, `trace_topology_reference`,
 `wavefront_phase_reference`). There is no fallback between the two: a CUDA
@@ -572,7 +573,8 @@ def _phase_kernel():
     lib = build.load("phase", "phase.cu")
     fn = lib.rays1_phase_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, f, ctypes.c_uint32, p]
+    fn.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, f, ctypes.c_uint32, p,
+                   p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -584,7 +586,8 @@ def wavefront_phase(packed: torch.Tensor, state, alive, ray_id, cnt, slots,
     [b0, bend). packed: float32 (7, S); state: float32 (12, N); alive:
     bool[N]; ray_id, cnt: int32[N]; slots: int32[M] or None (all N). CUDA
     tensors launch the kernel of csrc/phase.cu on the current stream (none
-    when M is 0); CPU tensors run wavefront_phase_reference."""
+    when M is 0), whose lanes take list entries from a zeroed int32
+    counter; CPU tensors run wavefront_phase_reference."""
     global PHASE_LAUNCHES
     hard_only(cfg, "wavefront")
     device = packed.device
@@ -607,11 +610,12 @@ def wavefront_phase(packed: torch.Tensor, state, alive, ray_id, cnt, slots,
     check_table_fits(s_count)
     if m == 0:
         return None
+    work = torch.zeros(1, dtype=torch.int32, device=device)
     err = _phase_kernel()(
         packed.data_ptr(), s_count, state.data_ptr(), alive.data_ptr(),
         ray_id.data_ptr(), cnt.data_ptr(),
         None if slots is None else slots.data_ptr(), m, n, b0, bend,
-        cfg.max_bounces, cfg.t_min, cfg.seed,
+        cfg.max_bounces, cfg.t_min, cfg.seed, work.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"phase kernel launch failed: cudaError {err}")
@@ -640,14 +644,14 @@ def trace_wavefront(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
     schedule: bounces per phase (wavefront_spans).
 
     Compaction is per ray: after each phase but the last, the live slots
-    are listed (torch.nonzero, slot order kept) and the next phase launches
-    one thread per listed ray, which reads and writes that ray's state in
-    place, so no state moves and the output needs no unpermute. The JAX
-    package compacts 128-lane rows by argsort because per-ray argsort was
-    too slow on its TPU (megakernel.py:978-985); on the GPU a dead thread
-    costs nothing once it is off the list. Each listing reads its count
-    back to the host. CUDA tensors launch csrc/phase.cu; CPU tensors run
-    trace_wavefront_reference."""
+    are listed (torch.nonzero, slot order kept) and the next phase's lanes
+    take the listed rays one by one, each reading and writing its ray's
+    state in place, so no state moves and the output needs no unpermute.
+    The JAX package compacts 128-lane rows by argsort because per-ray
+    argsort was too slow on its TPU (megakernel.py:978-985); on the GPU a
+    dead ray costs nothing once it is off the list. Each listing reads its
+    count back to the host. CUDA tensors launch csrc/phase.cu; CPU tensors
+    run trace_wavefront_reference."""
     n = ox.shape[0] if ox.dim() == 1 else -1
     check_rays(n, packed.device, ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz,
                ray_id=ray_id)

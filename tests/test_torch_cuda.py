@@ -432,6 +432,57 @@ def test_phase_kernel_equals_plain_version(cuda, mb, schedule):
     assert all(torch.equal(a, b) for a, b in zip(rad, o_rad))
 
 
+@pytest.mark.parametrize("case,scene", [
+    ("M=1", "small"), ("M=1", "medium"), ("M=33", "small"),
+    ("M=33", "medium"), ("all dead", "small"), ("all dead", "medium"),
+    ("seeded order", "small"), ("seeded order", "medium"),
+    ("giant table", "giant"), ("M=0", "medium"),
+])
+def test_phase_kernel_edge_cases(cuda, case, scene):
+    """The second phase's list cut to one entry or a warp and one, a list
+    of dead rays only, the live rays in a seeded order, the giant scene's
+    4,096-row table (114,688 B of shared memory) and an empty list, which
+    launches nothing: state, alive flags and counts equal to the plain
+    version's after both phases. The small scene's 8 rows take the per-ray
+    nest, 48 rows and up the flat loop."""
+    cfg, _, prep, rays, ray_id = grad_inputs(scene, 32, 16, 2, 6, 8, cuda)
+    packed = megakernel.pack_spheres(prep)
+    state, alive, cnt = megakernel.wavefront_state(*rays, ray_id, cfg)
+    ref = [t.clone() for t in (state, alive, cnt)]
+    megakernel.wavefront_phase_reference(packed, *ref[:2], ray_id, ref[2],
+                                         None, 0, 2, cfg)
+    megakernel.wavefront_phase(packed, state, alive, ray_id, cnt, None, 0, 2,
+                               cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(state, ref[0]) and torch.equal(alive, ref[1])
+    assert torch.equal(cnt, ref[2])
+    live = alive.nonzero()[:, 0].to(torch.int32)
+    if case in ("M=1", "M=33"):
+        slots = live[:int(case[2:])]
+    elif case == "all dead":
+        slots = (~alive).nonzero()[:, 0].to(torch.int32)
+    elif case == "seeded order":
+        slots = live[torch.randperm(live.numel(), device=cuda,
+                                    generator=torch.Generator(
+                                        cuda).manual_seed(6))]
+    else:
+        slots = live[:0] if case == "M=0" else live
+    assert slots.numel() > 0 or case == "M=0"
+    before_state = state.clone()
+    ref = [t.clone() for t in (state, alive, cnt)]
+    megakernel.wavefront_phase_reference(packed, *ref[:2], ray_id, ref[2],
+                                         slots.contiguous(), 2, 7, cfg)
+    before = megakernel.PHASE_LAUNCHES
+    megakernel.wavefront_phase(packed, state, alive, ray_id, cnt,
+                               slots.contiguous(), 2, 7, cfg)
+    torch.cuda.synchronize()
+    assert megakernel.PHASE_LAUNCHES - before == (case != "M=0")
+    assert torch.equal(state, ref[0]) and torch.equal(alive, ref[1])
+    assert torch.equal(cnt, ref[2])
+    if case in ("all dead", "M=0"):
+        assert torch.equal(state, before_state)
+
+
 def test_render_engines_agree_on_the_card(cuda):
     cfg = RenderConfig(width=48, height=32, spp=4, max_bounces=8)
     scene = builders.create_small_scene(cfg.aspect)

@@ -1,25 +1,27 @@
-"""Host rehearsal of the kernels' lanes: respawn, one-shot, fused backward
-and the index sweep's tile loop.
+"""Host rehearsal of the kernels' lanes: respawn, one-shot, phase, fused
+backward and the index sweep's tile loop.
 
-The per-lane bodies of kernels/csrc/respawn.cu, oneshot.cu,
+The per-lane bodies of kernels/csrc/respawn.cu, oneshot.cu, phase.cu,
 mega_backward.cu and intersect_index.cu live in header functions,
-`r1b::respawn_pixel`, `r1b::oneshot_lane`, `r1b::index_tiles`
-(path_math.cuh) and `r1b::backward_ray` (path_adjoint.cuh), that are plain
-C++ once `__device__` and `__forceinline__` are defined away. This file
-compiles them with g++ -std=c++17 -O2 -ffp-contract=off (no contracted
-multiply-add, as nvcc --fmad=false) into a scratch library, loops them over
-every pixel or ray on the host, and holds them against the plain versions:
-the respawn and one-shot lanes bit for bit against trace_respawn_reference
-and trace_topology_reference, the index sweep bit for bit against
-closest_hit_index_reference, the backward lane within GRAD_TOL of
-backward_reference. The one-shot lane takes its rays in an order that is
-not the input order (reversed, or a seeded permutation), as a kernel's
-lanes refill from a counter, and must still write every output at its
-ray's index. The index sweep runs one ray at a time through the block's
-tile loop (one thread stages each tile). The warp-level parts of the
-kernels (ballots, shuffles, __match_any_sync, the block's count
-reduction) stay in the .cu files; here the row sums are plain adds in ray
-order, and the reverse loop runs each ray's own depth.
+`r1b::respawn_pixel`, `r1b::oneshot_lane`, `r1b::phase_lane`,
+`r1b::index_tiles` (path_math.cuh) and `r1b::backward_ray`
+(path_adjoint.cuh), that are plain C++ once `__device__` and
+`__forceinline__` are defined away. This file compiles them with g++
+-std=c++17 -O2 -ffp-contract=off (no contracted multiply-add, as nvcc
+--fmad=false) into a scratch library, loops them over every pixel or ray
+on the host, and holds them against the plain versions: the respawn,
+one-shot and phase lanes bit for bit against trace_respawn_reference,
+trace_topology_reference and wavefront_phase_reference, the index sweep
+bit for bit against closest_hit_index_reference, the backward lane within
+GRAD_TOL of backward_reference. The one-shot and phase lanes take their
+rays (list entries) in an order that is not the input order (reversed, or
+a seeded permutation), as a kernel's lanes refill from a counter, and must
+still write every output at its ray's index (slot). The index sweep runs
+one ray at a time through the block's tile loop (one thread stages each
+tile). The warp-level parts of the kernels (ballots, shuffles,
+__match_any_sync, the block's count reduction) stay in the .cu files;
+here the row sums are plain adds in ray order, and the reverse loop runs
+each ray's own depth.
 
 Needs g++; skips without it.
 """
@@ -160,6 +162,33 @@ extern "C" unsigned long long oneshot_rays(
             near_cut, nest, order, rr, rg, rb, cnt, topo);
 }
 
+// One lane takes every list entry of a phase, in `order`; or, with nest,
+// the ray of each entry in that order is advanced alone by phase_ray.
+extern "C" void phase_rays(const float* sph, int S, float* state,
+                           uint8_t* alive, const int* ray_id, int* cnt,
+                           const int* slots, int M, int N, int b0, int bend,
+                           int max_bounces, float t_min, uint32_t seed,
+                           int nest, const int* order) {
+  std::vector<float4> hot(S);
+  std::vector<float> pay(3 * (size_t)S);
+  for (int s = 0; s < S; ++s)
+    r1b::stage_row(sph, S, s, hot.data(), pay.data());
+  if (nest) {
+    for (int k = 0; k < M; ++k)
+      r1b::phase_ray(hot.data(), pay.data(), S,
+                     slots ? slots[order[k]] : order[k], state, alive,
+                     ray_id, cnt, N, b0, bend, max_bounces, t_min, seed);
+    return;
+  }
+  int taken = 0;
+  auto take = [&](bool need, int) {
+    return need ? (taken < M ? order[taken++] : M) : 0;
+  };
+  auto any = [](bool p) { return p; };
+  r1b::phase_lane(hot.data(), pay.data(), S, state, alive, ray_id, cnt, slots,
+                  M, N, b0, bend, max_bounces, t_min, seed, take, any);
+}
+
 extern "C" void index_rays(const float* const* col, int S,
                            const float* const* ray, int N, float t_min,
                            int* idx, uint8_t* hit) {
@@ -213,6 +242,8 @@ def host_lib(tmp_path_factory):
                                  f, f, i, p, p, p, p, p, p]
     lib.oneshot_rays.restype = ctypes.c_ulonglong
     lib.index_rays.argtypes = [p, i, p, i, f, p, p]
+    lib.phase_rays.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, f,
+                               ctypes.c_uint32, i, p]
     return lib
 
 
@@ -347,6 +378,61 @@ def test_oneshot_lane_equals_plain_version(host_lib, scene, w, h, spp, mb,
     assert total == int(want_cnt.sum())
     assert int(cnt[-7:].abs().sum()) == 0 and bool((topo[:, -7:] == -1).all())
     assert int(((topo >= 0).sum(0) > 1).sum()) > 0  # rays of several bounces
+
+
+@pytest.mark.parametrize("order", ["reversed", "permuted", "nest"])
+@pytest.mark.parametrize("scene,w,h,spp,mb,schedules,ragged", [
+    # chip_smoke.PHASE_CASES: hollow glass; the budget runs out first;
+    # ragged with padding ids. The small scene's 8 rows take the per-ray
+    # nest on the card, 48 rows the flat loop.
+    ("small", 64, 32, 8, 6, [(2, 5), (2, 3, 6), (1,)], False),
+    ("small", 64, 32, 8, 3, [(2, 3, 6)], False),
+    ("small", 50, 30, 2, 4, [(2, 5), (2, 3, 6), (1,)], True),
+    ("medium", 32, 18, 2, 10, [(2, 3, 6), (1,)], False),
+])
+def test_phase_lane_equals_plain_version(host_lib, scene, w, h, spp, mb,
+                                         schedules, ragged, order):
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_bounces=mb)
+    sc = builders.SCENES[scene](cfg.aspect, pad_multiple=8, device="cpu")
+    prep = (prepare(sc.spheres) if scene == "medium"
+            else prepare_trimmed(sc.spheres, sc.n_real))
+    packed = megakernel.pack_spheres(prep)
+    if ragged:
+        rays, ray_id = ragged_with_padding(cfg, sc, cut=5, pad=7)
+    else:
+        ray_id, x, y = ray_coords(cfg, "cpu")
+        rays = [r.contiguous() for r in primary_rays(
+            sc.camera.build("cpu"), cfg, x, y, ray_id)]
+    n = ray_id.numel()
+    rng = np.random.default_rng(3)
+    for schedule in schedules:
+        state, alive, cnt = megakernel.wavefront_state(*rays, ray_id, cfg)
+        spans = megakernel.wavefront_spans(schedule, mb)
+        for k, (b0, bend) in enumerate(spans):
+            slots = (alive.nonzero()[:, 0].to(torch.int32).contiguous() if k
+                     else None)
+            m = n if slots is None else slots.numel()
+            ref = [t.clone() for t in (state, alive, cnt)]
+            megakernel.wavefront_phase_reference(packed, ref[0], ref[1],
+                                                 ray_id, ref[2], slots, b0,
+                                                 bend, cfg)
+            take = (np.arange(m)[::-1] if order == "reversed"
+                    else rng.permutation(m)).astype(np.int32)
+            host_lib.phase_rays(
+                ptr(packed), packed.shape[1], ptr(state), ptr(alive),
+                ptr(ray_id), ptr(cnt),
+                None if slots is None else ptr(slots), m, n, b0, bend, mb,
+                cfg.t_min, cfg.seed, int(order == "nest"),
+                ptr(torch.from_numpy(np.ascontiguousarray(take))))
+            assert torch.equal(state, ref[0]), (schedule, k)
+            assert torch.equal(alive, ref[1]) and torch.equal(cnt, ref[2])
+        want_rad, want_cnt, _ = megakernel.trace_topology_reference(
+            packed, *rays, ray_id, cfg)
+        assert torch.equal(cnt, want_cnt)
+        assert all(torch.equal(a, b) for a, b in zip(state[9:], want_rad))
+        if ragged:
+            assert int(cnt[-7:].abs().sum()) == 0
+    assert int(cnt.max()) > 2  # rays that outlive the first span
 
 
 INDEX_TILE = 1024  # r1b::kIndexTile
