@@ -10,7 +10,9 @@
 3. Holds the respawn kernel against its plain PyTorch version on the card,
    on the same inputs: per-pixel ray counts and the 64-bit total must be
    equal and per-pixel sample sums within SUM_TOL. A two-span split of the samples is
-   held against the full span.
+   held against the full span. The kIters instantiation (debug_iters) gives
+   the same outputs and warp trips equal to respawn_iters_reference of the
+   per-pixel counts.
 4. Drives the main path, render_image_megakernel through the benchmark
    harness, at the headline: large scene, 1280x720 @ 250 spp @ 50 bounces,
    one warm frame and two timed frames. The ray count must be within 0.3% of
@@ -27,7 +29,9 @@
    sample only when its 16x2 pixels all ended theirs (the plain version,
    one sample at a time), against the flat loop's 8x4-pixel warps, which
    run as long as their busiest pixel, on the crop and on the headline
-   launch's own per-pixel counts.
+   launch's own per-pixel counts. Then the kIters instantiation at the
+   headline, in turns with the kernel without it (its cost), its trips
+   equal to the plain twin of the frame's counts.
 7. The gradient kernels against their plain versions on the card, on the
    small scene at 64x32 @ 2 spp @ 3 and 5 b (hollow glass, fuzzed metal,
    dielectric) and the medium and large scenes at 160x90 @ 4 spp @ 10 b:
@@ -85,7 +89,11 @@
    time less its phases beside the one-shot frame's less its kernel: the
    difference is the listings' cost. Then the wavefront frame's phases
    with each list in a seeded order (REFILL_SEED), each ray's radiance and
-   count equal to the in-order run's.
+   count equal to the in-order run's. The one-shot kIters instantiation on
+   the CLI frame: outputs equal to the plain version's, warp trips no fewer
+   than oneshot_iters_reference's fewest and 32 x trips >= the segments
+   traced (the lane occupancy printed), and its cost in turns with the
+   kernel without it.
 13. Drives the multi-scene CLI at its defaults (small, medium, large, one
    run each, the one-shot engine) and parses each out_<scene>.txt.
 14. engine="pipeline" gradients with the index kernel and with the plain
@@ -124,11 +132,34 @@
 19. Soft step timings through bench.grad.run (--soft): the small
    full-resolution recipe and the medium stage-2 recipe
    (tools/medium_fit_probe.py:64-102), phases and kernels alone.
+20. The sharded path (parallel/), [shard]. Its local functions
+   (parallel/shard.kernel_local), every coordinate of a 4-way tile mesh and
+   of a 2x2 (tiles, samples) mesh in turn on the one card, at the CLI's
+   full config on the large scene: one-shot and wavefront images equal to
+   step 12's frames bit for bit, respawn equal on the tile mesh and within
+   SPLIT_TOL on 2x2 (each pixel's two sample spans added once), the ranks'
+   rays summing to the frame's, respawn trips equal to the plain twin of
+   each rank's per-pixel counts, one-shot trips inside their bounds. The
+   sharded fused gradient on the medium fit frame, 4 ranks: kernel A on
+   each rank's slice equal to the single-device launch bit for bit, kernel
+   B's ray cotangents equal and its (10, S) columns summed over the ranks
+   within GRAD_TOL of the single-device B (summed scales, as in 9). Then
+   the path itself through a group of one NCCL rank: render_image_pallas_
+   sharded for each engine (telemetry on the one-shot and respawn engines)
+   and on a 1x1 mesh, equal to step 12's frames; the headline through
+   respawn=True, equal to step 4's frame; one fit_scene(mesh=...) step on
+   step 8's recipe through "mega" and "pipeline", each loss within
+   GRAD_TOL of the unsharded step's.
 Then prints one JSON line of per-kernel results and, last, the device line.
 Each kernel's launches there are those of the main paths that run it: the
-respawn kernel's the headline's; the one-shot kernel's both fits, the
-one-shot engine's frame and the CLI's; the index kernel's the pipeline fit
-and the giant step; the phase kernel's the wavefront frame. Times and
+respawn kernel's the headline's and the sharded path's; the one-shot
+kernel's both fits, the one-shot engine's frame, the CLI's and the sharded
+path's; the index kernel's the pipeline fit, the giant step and the
+sharded pipeline step; the phase kernel's the wavefront frame and the
+sharded one; the kIters instantiations' (respawn_iters, oneshot_iters) the
+sharded path's telemetry. The kIters entries' times and bounds: the
+respawn kernel's at compare's first case, as the respawn entry's; the
+one-shot kernel's on the CLI frame. Times and
 bounds: the gradient kernels' on the medium frame, the index kernel's on
 one chunk of the medium fit (131,072 rays), the phase kernel's summed over
 the phases of the wavefront frame; max_abs_err is the worst of every
@@ -173,7 +204,7 @@ from rays1bench_tpu_torch.bench.gradcase import (random_cts, save_case,
                                                  soa_grads, summed_scales)
 from rays1bench_tpu_torch.bench.harness import benchmark_sustained
 from rays1bench_tpu_torch.core.config import RenderConfig, get_config
-from rays1bench_tpu_torch.grad import inverse
+from rays1bench_tpu_torch.grad import inverse, mega
 from rays1bench_tpu_torch.grad.inverse import (InverseConfig, fit_scene,
                                                make_train_step, params_of,
                                                render_for_loss, with_params)
@@ -183,6 +214,9 @@ from rays1bench_tpu_torch.kernels.pipeline import (image_of_rays,
                                                    prepare_trimmed,
                                                    ray_coords,
                                                    render_image_megakernel)
+from rays1bench_tpu_torch.parallel import shard
+from rays1bench_tpu_torch.parallel.mesh import make_mesh, make_mesh2d
+from rays1bench_tpu_torch.parallel.shard import render_image_pallas_sharded
 from rays1bench_tpu_torch.render.pipeline import (primary_rays, render_image,
                                                   to_srgb_u8)
 from rays1bench_tpu_torch.scene import builders, tga
@@ -289,6 +323,10 @@ RECOVERY = 0.3                 # tools/fullres_fit_probe.py:116
 INDEX_CHUNK = 131072           # RenderConfig.ray_chunk, the pipeline's chunk
 INDEX_PLAIN_CHUNK = 65536      # (65,536 x 4,096) float temporaries: ~1 GB each
 
+# The sharded path's local checks: a 4-way tile mesh and a 2x2 (tiles,
+# samples) mesh.
+SHARD_SHAPES = ((4, 1), (2, 2))
+
 CASES = [  # (name, scene, width, height, spp, max_bounces)
     ("large 160x90 @ 4 spp @ 10 b", "large", 160, 90, 4, 10),
     ("small 64x32 @ 8 spp @ 6 b (hollow glass)", "small", 64, 32, 8, 6),
@@ -364,14 +402,35 @@ def compare_case(label, scene_name, w, h, spp, mb):
         raise AssertionError(f"{label}: split ray counts differ")
     if not split_err <= SPLIT_TOL:
         raise AssertionError(f"{label}: split sums differ by {split_err}")
-    return err, k_ms, p_ms, respawn_bound(cfg.num_pixels, packed.shape[1],
-                                          int(k_total))
+
+    # The kIters instantiation: the same outputs, and trips equal to the
+    # plain twin of the plain version's per-pixel counts.
+    megakernel.trace_respawn(packed, cam, cfg, debug_iters=True)  # warm
+    (i_rad, i_cnt, i_total, i_iters), i_ms = cuda_ms(
+        lambda: megakernel.trace_respawn(packed, cam, cfg, debug_iters=True),
+        reps=3)
+    _, _, i_err = count_and_sum_gaps(f"{label}, kIters", i_cnt, i_rad, p_cnt,
+                                     p_rad)
+    twin, t_ms = cuda_ms(lambda: megakernel.respawn_iters_reference(p_cnt, w))
+    print(f"[compare] {label}: kIters kernel {i_ms:.3f} ms (without "
+          f"{k_ms:.3f}): outputs equal to the plain version's; warp trips "
+          f"{int(i_iters)}, plain twin {int(twin)} ({t_ms:.2f} ms)",
+          flush=True)
+    if int(i_iters) != int(twin) or int(i_total) != int(k_total):
+        raise AssertionError(f"{label}: kIters trips {int(i_iters)} against "
+                             f"the plain twin's {int(twin)}")
+    bound = respawn_bound(cfg.num_pixels, packed.shape[1], int(k_total))
+    return (err, k_ms, p_ms, bound,
+            (i_err, i_ms, p_ms + t_ms, respawn_bound(
+                cfg.num_pixels, packed.shape[1], int(k_total), 8)))
 
 
 def reset_launches():
     megakernel.LAUNCHES = 0
     megakernel.ONESHOT_LAUNCHES = 0
     megakernel.PHASE_LAUNCHES = 0
+    megakernel.RESPAWN_ITERS_LAUNCHES = 0
+    megakernel.ONESHOT_ITERS_LAUNCHES = 0
     mega_backward.LAUNCHES = 0
     intersect_index.LAUNCHES = 0
 
@@ -383,10 +442,10 @@ def bound_ms(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def respawn_bound(npix, s_count, rays):
-    """Table and camera in, 3 sums and a count per pixel out; a sweep of
-    every row per traced ray."""
-    return bound_ms(4 * (7 * s_count + 19 + 4 * npix),
+def respawn_bound(npix, s_count, rays, extra=0):
+    """Table and camera in, 3 sums and a count per pixel out (and `extra`
+    bytes: the kIters trip total); a sweep of every row per traced ray."""
+    return bound_ms(4 * (7 * s_count + 19 + 4 * npix) + extra,
                     rays * s_count * SWEEP_OPS)
 
 
@@ -969,6 +1028,52 @@ def headline_vs_plain(img, rays):
     return err, k_ms, p_ms, pid.numel(), k_cnt
 
 
+def iters_cost(label, off, on, check):
+    """Kernel ms of the kIters = false and true instantiations of one call,
+    in turns (off, on, on, off), one call each; check(result of on) raises
+    unless its trips are right. Returns (off ms, on ms), each the mean of
+    two."""
+    ms = {"off": [], "on": []}
+    for name in ("off", "on", "on", "off"):
+        out, t = cuda_ms(off if name == "off" else on)
+        if name == "on":
+            check(out)
+        ms[name].append(t)
+    print(f"[iters] {label}: kIters off {', '.join(f'{t:.3f}' for t in ms['off'])}"
+          f" ms, on {', '.join(f'{t:.3f}' for t in ms['on'])} ms (in turns "
+          f"off, on, on, off)", flush=True)
+    return sum(ms["off"]) / 2, sum(ms["on"]) / 2
+
+
+def headline_iters(frame_cnt):
+    """The respawn kernel's kIters cost at the headline, its trips held to
+    the plain twin of the frame's per-pixel counts (frame_cnt, the kernel's
+    own without kIters); returns (off ms, on ms, trips)."""
+    cfg = HEADLINE
+    packed, cam = packed_inputs("large", cfg)
+    twin = int(megakernel.respawn_iters_reference(frame_cnt, cfg.width))
+    trips = []
+
+    def check(out):
+        if not torch.equal(out[1], frame_cnt) or int(out[3]) != twin:
+            raise AssertionError(f"headline kIters: trips {int(out[3])} "
+                                 f"against the plain twin's {twin}, or "
+                                 f"counts differ")
+        trips.append(int(out[3]))
+
+    off, on = iters_cost(
+        "respawn, headline frame",
+        lambda: megakernel.trace_respawn(packed, cam, cfg),
+        lambda: megakernel.trace_respawn(packed, cam, cfg, debug_iters=True),
+        check)
+    segs = int(frame_cnt.sum(dtype=torch.int64))
+    print(f"[iters] respawn, headline frame: warp trips {trips[0]} = the "
+          f"plain twin's; lane occupancy {segs / (32 * trips[0]):.4f} "
+          f"(chip_smoke's occupancy phase: flat loop over the whole "
+          f"headline launch)", flush=True)
+    return off, on, trips[0]
+
+
 def warp_occupancy(cnt, tile):
     """Lane occupancy of a warp schedule, from per-pixel segment counts.
 
@@ -1262,7 +1367,47 @@ def oneshot_vs_plain(label, packed, rays, ray_id, cfg, frame, n_frame):
     print(f"[engines] {label}: the frame's rays in a seeded order: every "
           f"ray's radiance and count equal to the in-order launch's",
           flush=True)
-    return max_gap((*k_rad, k_cnt), (*p_rad, p_cnt)), k_ms, p_ms
+
+    # The kIters instantiation: the same outputs; from 16 rows up (the flat
+    # loop) its trips depend on the refill order and are held to bounds.
+    i_rad, i_cnt, i_total, i_iters = megakernel.trace_oneshot(
+        packed, *rays, ray_id, cfg, debug_iters=True)
+    n_diff = sum(int((a != b).sum()) for a, b in zip((*i_rad, i_cnt),
+                                                      (*p_rad, p_cnt)))
+    if n_diff or int(i_total) != n_frame:
+        raise AssertionError(f"{label}: kIters one-shot kernel vs plain "
+                             f"version: {n_diff} values differ")
+    low, t_ms = cuda_ms(lambda: megakernel.oneshot_iters_reference(
+        p_cnt, packed.shape[1]))
+    check_oneshot_trips(label, int(i_iters), int(low), n_frame)
+    off, on = iters_cost(
+        f"one-shot, {label}",
+        lambda: megakernel.trace_oneshot(packed, *rays, ray_id, cfg),
+        lambda: megakernel.trace_oneshot(packed, *rays, ray_id, cfg,
+                                         debug_iters=True),
+        lambda out: check_oneshot_trips(label, int(out[3]), int(low),
+                                        n_frame))
+    err = max_gap((*k_rad, k_cnt), (*p_rad, p_cnt))
+    # 6 ray planes and ids in, radiance and counts out, and the trip total.
+    bound = bound_ms(4 * (7 * packed.shape[1] + ray_id.numel() * 11) + 8,
+                     n_frame * packed.shape[1] * SWEEP_OPS)
+    return (err, k_ms, p_ms,
+            (max_gap((*i_rad, i_cnt), (*p_rad, p_cnt)), on, p_ms + t_ms,
+             bound), (off, on))
+
+
+def check_oneshot_trips(label, trips, low, segments):
+    """The flat loop's trips against their bounds: no fewer than the plain
+    version's fewest (oneshot_iters_reference), 32 x trips >= the segments
+    traced; prints the lane occupancy segments / (32 x trips)."""
+    occ = segments / (32 * trips)
+    print(f"[iters] {label}: one-shot warp trips {trips}, the fewest any "
+          f"refill order takes {low}; lane occupancy {occ:.4f} (bench."
+          f"variants' `rounds` variant measured 0.982-0.986 on this frame)",
+          flush=True)
+    if trips < low or not occ <= 1.0:
+        raise AssertionError(f"{label}: one-shot trips {trips} outside "
+                             f"their bounds ({low}, {segments} segments)")
 
 
 def phases_vs_plain(label, packed, rays, ray_id, cfg, frame, n_frame):
@@ -1346,7 +1491,9 @@ def engines_full():
     """The one-shot and wavefront engines at the CLI's full config on the
     large scene, then both kernels against their plain versions on the
     frames' own inputs; returns (one-shot launches, phase launches, one-shot
-    max abs gap, phase (max abs gap, ms, plain ms, bound))."""
+    max abs gap, phase (max abs gap, ms, plain ms, bound), the one-shot
+    kIters entry (max abs gap, ms, plain ms, bound), its (off, on) ms, and
+    the three engines' (frame, rays))."""
     cfg = get_config("full")
     scene = builders.SCENES["large"](cfg.aspect, device="cuda")
     camera = scene.camera.build("cuda")
@@ -1385,8 +1532,8 @@ def engines_full():
         raise AssertionError(f"{label}: non-finite pixels")
 
     packed, rays, ray_id = engine_inputs(scene, camera, cfg)
-    one_err, k_ms, _ = oneshot_vs_plain(label, packed, rays, ray_id, cfg,
-                                        one, n_one)
+    one_err, k_ms, _, one_iters, one_cost = oneshot_vs_plain(
+        label, packed, rays, ray_id, cfg, one, n_one)
     # 6 ray planes and ids in, radiance and counts out, no topology.
     bound = bound_ms(4 * (7 * packed.shape[1] + ray_id.numel() * 11),
                      n_one * packed.shape[1] * SWEEP_OPS)
@@ -1399,7 +1546,234 @@ def engines_full():
           f"{one_ms - k_ms:.3f} ms: the listings between phases take about "
           f"{(wave_ms - phase[1]) - (one_ms - k_ms):.3f} ms", flush=True)
     phases_in_seeded_order(label, packed, rays, ray_id, cfg)
-    return launches + (one_err, phase)
+    frames = {"oneshot": (one, n_one), "wavefront": (wave, n_wave),
+              "respawn": (resp, n_resp)}
+    return launches + (one_err, phase, one_iters, one_cost, frames)
+
+
+def shard_local(frames):
+    """The kernel engines' local functions (parallel/shard.kernel_local),
+    every coordinate of SHARD_SHAPES in turn on the one card, at the CLI
+    full config on the large scene, against the single-device frames of
+    engines_full (frames: engine -> (image, rays)): one-shot and wavefront
+    images equal bit for bit; respawn equal on the tile mesh and within
+    SPLIT_TOL on 2x2 (each pixel's two sample spans added once, as
+    compare_case's split); the ranks' rays summing to the frame's; the
+    respawn kernel's trips equal to the plain twin of each rank's per-pixel
+    counts; the one-shot kernel's inside their bounds."""
+    cfg = get_config("full")
+    scene = builders.SCENES["large"](cfg.aspect, device="cuda")
+    camera = scene.camera.build("cuda")
+    s_count = prepare_trimmed(scene.spheres, scene.n_real).count
+    for shape in SHARD_SHAPES:
+        coords = [(i, j) for i in range(shape[0]) for j in range(shape[1])]
+        for engine, kw in (("oneshot", {}),
+                           ("wavefront", dict(wavefront=WAVEFRONT)),
+                           ("respawn", dict(respawn=True))):
+            label = (f"{engine}, {shape[0]}x{shape[1]} (tiles, samples), "
+                     f"large {cfg.width}x{cfg.height} @ {cfg.spp} spp @ "
+                     f"{cfg.max_bounces} b")
+            telemetry = engine != "wavefront"
+            parts = [shard.kernel_local(scene.spheres, camera, cfg, shape, c,
+                                        n_real=scene.n_real,
+                                        telemetry=telemetry, **kw)
+                     for c in coords]
+            assemble = (shard.assemble_pixels if engine == "respawn"
+                        else shard.assemble_rays)
+            img = assemble(torch.stack([p.rad for p in parts]), cfg, shape)
+            want, n_want = frames[engine]
+            rays = [int(p.rays) for p in parts]
+            gap = float((img - want).abs().max())
+            exact = engine != "respawn" or shape[1] == 1
+            if sum(rays) != n_want or not gap <= SPLIT_TOL or (
+                    exact and not torch.equal(img, want)):
+                raise AssertionError(f"[shard] {label}: rays {sum(rays)} "
+                                     f"against {n_want}, image gap {gap}")
+            line = (f"[shard] {label}: image "
+                    + ("equal bit for bit" if torch.equal(img, want) else
+                       f"within {gap:.3e}")
+                    + f" to the single-device frame; rays per rank {rays}")
+            if engine == "respawn":
+                iters = [int(p.iters) for p in parts]
+                twins = [int(megakernel.respawn_iters_reference(
+                    p.cnt, cfg.width)) for p in parts]
+                if iters != twins:
+                    raise AssertionError(f"[shard] {label}: trips {iters} "
+                                         f"against the plain twin's {twins}")
+                line += f"; warp trips {iters} = the plain twin's"
+            elif engine == "oneshot":
+                iters = [int(p.iters) for p in parts]
+                lows = [int(megakernel.oneshot_iters_reference(p.cnt,
+                                                               s_count))
+                        for p in parts]
+                occ = [r / (32 * t) for r, t in zip(rays, iters)]
+                if any(t < lo for t, lo in zip(iters, lows)) or \
+                        max(occ) > 1.0:
+                    raise AssertionError(f"[shard] {label}: trips {iters} "
+                                         f"outside their bounds {lows}")
+                line += (f"; warp trips {iters} (fewest possible {lows}), "
+                         f"lane occupancy "
+                         f"{', '.join(f'{o:.4f}' for o in occ)}")
+            print(line, flush=True)
+
+
+def shard_gradient():
+    """The sharded fused gradient's local functions on the medium fit frame
+    (FULL, medium, 48 rows), a 4-way mesh: kernel A on each rank's ray
+    slice (grad.mega.shard_forward) equal bit for bit to the single-device
+    launch at those rays (padding ids: count 0, topology -1), kernel B on
+    each slice with its rays' cotangents: ray cotangents equal to the
+    single-device B's, the ranks' (10, S) columns summed within GRAD_TOL of
+    the single-device B's under the summed-scale rule (gradient_gap, each
+    rank's sums a chunk). Returns the worst relative gap."""
+    cfg = RenderConfig(**FULL)
+    scene, prep, rays, ray_id = grad_inputs("medium", cfg, 8)
+    camera = scene.camera.build("cuda")
+    packed = megakernel.pack_spheres(prep)
+    n = ray_id.numel()
+    rad, cnt, _, topo = megakernel.trace_topology(packed, *rays, ray_id, cfg)
+    cts = random_cts(n, 3)
+    grads, ray_cts = mega_backward.backward(prep, *rays, ray_id, *cts, topo,
+                                            cfg)
+    label = (f"sharded fused gradient, 4 ranks, medium ({prep.count} rows) "
+             f"{cfg.width}x{cfg.height} @ {cfg.spp} spp @ "
+             f"{cfg.max_bounces} b")
+    parts = []
+    for d in range(4):
+        ids = shard.ray_slice(cfg, 4, 1, d, 0, "cuda")
+        real = ids < n
+        idx = ids.clamp_max(n - 1).long()
+        ((r_rad, r_cnt, _, r_topo), r_rays) = mega.shard_forward(
+            prep, camera, cfg, ids)
+        same = (all(torch.equal(a[real], b[idx[real]])
+                    for a, b in zip((*r_rad, r_cnt, *r_rays),
+                                    (*rad, cnt, *rays)))
+                and torch.equal(r_topo[:, real], topo[:, idx[real]])
+                and int(r_cnt[~real].abs().sum()) == 0
+                and bool((r_topo[:, ~real] == -1).all()))
+        if not same:
+            raise AssertionError(f"[shard] {label}: rank {d}'s kernel A "
+                                 f"differs from the single-device launch")
+        r_cts = [torch.where(real, c[idx], 0.0) for c in cts]
+        g, rc = mega_backward.backward(prep, *r_rays, ids, *r_cts, r_topo,
+                                       cfg)
+        if not all(torch.equal(a[real], b[idx[real]])
+                   for a, b in zip(rc, ray_cts)):
+            raise AssertionError(f"[shard] {label}: rank {d}'s ray "
+                                 f"cotangents differ")
+        parts.append(g)
+    rel, err = gradient_gap(label, (sum(parts), ray_cts), (grads, ray_cts),
+                            scene.spheres, scene.n_real,
+                            ("medium", scene.spheres, cfg, cts, 3, None),
+                            parts)
+    print(f"[shard] {label}: kernel A on each rank's slice equal to the "
+          f"single-device launch; ray cotangents equal; (10, S) sum over "
+          f"the ranks within {rel:.2e} of the single-device B (GRAD_TOL "
+          f"{GRAD_TOL}, summed scales), max abs gap {err:.2e}", flush=True)
+    return rel
+
+
+def shard_group(head_img, head_rays, frames):
+    """The sharded path through a group of one NCCL rank, every launch
+    counted from 0: render_image_pallas_sharded at the CLI full config on
+    the large scene for each engine (one-shot and respawn with telemetry,
+    wavefront, and the one-shot engine on a 1x1 (tiles, samples) mesh),
+    each image and count equal to engines_full's single-device frame
+    (frames) bit for bit; the headline through respawn=True, equal to the
+    main path's frame (head_img, head_rays); one fit_scene(mesh=...) step
+    on the medium fit recipe on each engine ("mega", the sharded fused
+    path; "pipeline", the sharded plain render with the index kernel),
+    each loss within GRAD_TOL of the unsharded step's. Returns the
+    launches of each kernel."""
+    cfg = get_config("full")
+    scene = builders.SCENES["large"](cfg.aspect, device="cuda")
+    camera = scene.camera.build("cuda")
+    fit_cfg = RenderConfig(**FULL)
+    medium = builders.SCENES["medium"](fit_cfg.aspect, pad_multiple=8,
+                                       device="cuda")
+    m_camera = medium.camera.build("cuda")
+    start = perturb_albedos(medium.spheres, medium.n_real)
+    inv = InverseConfig(learning_rate=1e-2, steps=1, optimize=ALBEDOS)
+    targets, unsharded = {}, {}
+    for engine in ("mega", "pipeline"):
+        with torch.no_grad():
+            targets[engine] = render_for_loss(medium.spheres, m_camera,
+                                              fit_cfg, engine=engine)
+        unsharded[engine] = fit_scene(start, m_camera, targets[engine],
+                                      fit_cfg, inv, engine=engine)[1][0]
+
+    store = tempfile.mkdtemp(prefix="rays1bench_group_")
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for engine, kw in (("oneshot", dict(telemetry=True)),
+                           ("respawn", dict(respawn=True, telemetry=True)),
+                           ("wavefront", dict(wavefront=WAVEFRONT))):
+            out = render_image_pallas_sharded(scene.spheres, camera, cfg,
+                                              mesh, n_real=scene.n_real,
+                                              **kw)
+            want, n_want = frames[engine]
+            if not (torch.equal(out[0], want) and int(out[1]) == n_want):
+                raise AssertionError(f"[shard] group of one, {engine}: the "
+                                     f"frame differs from the single-device "
+                                     f"one")
+            telem = (f"; device_rays {out[2]['device_rays'].tolist()}, "
+                     f"device_iters {out[2]['device_iters'].tolist()}"
+                     if len(out) == 3 else "")
+            print(f"[shard] group of one NCCL rank, {engine}, large "
+                  f"{cfg.width}x{cfg.height} @ {cfg.spp} spp @ "
+                  f"{cfg.max_bounces} b: image and rays ({int(out[1])}) "
+                  f"equal to the single-device frame's{telem}", flush=True)
+        img, n = render_image_pallas_sharded(
+            scene.spheres, camera, cfg, make_mesh2d(1, 1), axis_name="tiles",
+            sample_axis="samples", n_real=scene.n_real)
+        if not (torch.equal(img, frames["oneshot"][0])
+                and int(n) == frames["oneshot"][1]):
+            raise AssertionError("[shard] group of one, 1x1 mesh: the "
+                                 "frame differs")
+        img, n = render_image_pallas_sharded(scene.spheres, camera, HEADLINE,
+                                             mesh, n_real=scene.n_real,
+                                             respawn=True)
+        if not (torch.equal(img, head_img) and int(n) == head_rays):
+            raise AssertionError("[shard] group of one: the headline differs "
+                                 "from the main path's frame")
+        print(f"[shard] group of one NCCL rank: the 1x1 (tiles, samples) "
+              f"mesh's one-shot frame and the headline through respawn=True "
+              f"({int(n)} rays) equal to the single-device frames",
+              flush=True)
+        for engine in ("mega", "pipeline"):
+            losses = fit_scene(start, m_camera, targets[engine], fit_cfg,
+                               inv, mesh=mesh, engine=engine)[1]
+            gap = abs(losses[0] - unsharded[engine]) / abs(unsharded[engine])
+            print(f"[shard] group of one NCCL rank: fit_scene(mesh=...) step "
+                  f"on the medium fit recipe, engine {engine}: loss "
+                  f"{losses[0]:.6e}, unsharded {unsharded[engine]:.6e} "
+                  f"(relative gap {gap:.2e})", flush=True)
+            if not gap <= GRAD_TOL:
+                raise AssertionError(f"[shard] {engine} step loss differs")
+        torch.cuda.synchronize()
+        launches = {
+            "respawn": megakernel.LAUNCHES,
+            "oneshot": megakernel.ONESHOT_LAUNCHES,
+            "phase": megakernel.PHASE_LAUNCHES,
+            "respawn_iters": megakernel.RESPAWN_ITERS_LAUNCHES,
+            "oneshot_iters": megakernel.ONESHOT_ITERS_LAUNCHES,
+            "mega_backward": mega_backward.LAUNCHES,
+            "intersect_index": intersect_index.LAUNCHES}
+        print(f"[shard] group of one NCCL rank: the path in "
+              f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+              flush=True)
+        missing = [k for k, v in launches.items() if v < 1]
+        if missing:
+            raise AssertionError(f"[shard] the sharded path launched no "
+                                 f"{missing}")
+        return launches
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def parse_record(text):
@@ -1531,7 +1905,7 @@ def pipeline_fit(scene_name, steps, engine):
     scene = builders.SCENES[scene_name](cfg.aspect, pad_multiple=8,
                                         device="cuda")
     camera = scene.camera.build("cuda")
-    route = inverse._pick_engine(scene.spheres, cfg, None, engine)
+    route = inverse._pick_engine(scene.spheres, cfg, engine)
     with torch.no_grad():
         target = render_for_loss(scene.spheres, camera, cfg, engine=engine)
     start = perturb_albedos(scene.spheres, scene.n_real)
@@ -1620,11 +1994,13 @@ def main():
                 print(f"[build] {lib.name}: {line.strip()}", flush=True)
 
     results = [compare_case(*case) for case in CASES]
-    _, k_ms, p_ms, r_bound = results[0]
+    _, k_ms, p_ms, r_bound, r_iters = results[0]
+    r_iters = (max(r[4][0] for r in results),) + r_iters[1:]
 
     launches, img, rays = headline()
     head_err, _, _, _, head_cnt = headline_vs_plain(img, rays)
     occupancy(head_cnt)
+    head_iters = headline_iters(head_cnt)
     max_err = max([r[0] for r in results] + [head_err])
 
     grad = [grad_case(*case) for case in GRAD_CASES]
@@ -1649,28 +2025,41 @@ def main():
 
     index = index_checks()
     phase_err = max(phase_case(*case) for case in PHASE_CASES)
-    *engine_launches, one_err, phase = engines_full()
+    (*engine_launches, one_err, phase, one_iters, one_cost,
+     frames) = engines_full()
     phase = (max(phase_err, phase[0]),) + phase[1:]
     a_err = max(a_err, one_err)
     cli_launches = cli_run()
     pipeline_index_vs_sweep()
     index_launches, bounce_err = pipeline_checks()
     index = (max(index[0], bounce_err),) + index[1:]
+
+    t0 = time.perf_counter()
+    shard_local(frames)
+    shard_rel = shard_gradient()
+    shard_launches = shard_group(img, rays, frames)
+    print(f"[shard] every check in {time.perf_counter() - t0:.1f} s; the "
+          f"sharded fused gradient's worst relative gap {shard_rel:.2e}; "
+          f"kIters cost (off, on) ms: respawn headline "
+          f"({head_iters[0]:.3f}, {head_iters[1]:.3f}), one-shot CLI frame "
+          f"({one_cost[0]:.3f}, {one_cost[1]:.3f})", flush=True)
     print(f"[time] every phase in {time.perf_counter() - started:.1f} s",
           flush=True)
 
     print(f"[card] {card}")
     print(json.dumps({"kernels": [
         kernel_entry("respawn", "respawn.cu",
-                     "rays1bench_tpu/kernels/megakernel.py:553", launches,
-                     max_err, k_ms, p_ms, r_bound),
+                     "rays1bench_tpu/kernels/megakernel.py:553",
+                     launches + shard_launches["respawn"], max_err, k_ms,
+                     p_ms, r_bound),
         kernel_entry("oneshot", "oneshot.cu",
                      "rays1bench_tpu/kernels/megakernel.py:487",
-                     grad_launches[0] + engine_launches[0] + cli_launches,
-                     a_err, *a_full[1:]),
+                     grad_launches[0] + engine_launches[0] + cli_launches
+                     + shard_launches["oneshot"], a_err, *a_full[1:]),
         kernel_entry("mega_backward", "mega_backward.cu",
                      "rays1bench_tpu/kernels/mega_backward.py:227",
-                     grad_launches[1], b_err, *b_full[1:]),
+                     grad_launches[1] + shard_launches["mega_backward"],
+                     b_err, *b_full[1:]),
         kernel_entry("oneshot_soft", "oneshot.cu",
                      "rays1bench_tpu/kernels/megakernel.py:487",
                      soft_launches[0], *a_soft),
@@ -1679,10 +2068,17 @@ def main():
                      soft_launches[1], *b_soft),
         kernel_entry("intersect_index", "intersect_index.cu",
                      "rays1bench_tpu/kernels/intersect_pallas.py:34",
-                     index_launches, *index),
+                     index_launches + shard_launches["intersect_index"],
+                     *index),
         kernel_entry("phase", "phase.cu",
                      "rays1bench_tpu/kernels/megakernel.py:706",
-                     engine_launches[1], *phase),
+                     engine_launches[1] + shard_launches["phase"], *phase),
+        kernel_entry("respawn_iters", "respawn.cu",
+                     "rays1bench_tpu/kernels/megakernel.py:553",
+                     shard_launches["respawn_iters"], *r_iters),
+        kernel_entry("oneshot_iters", "oneshot.cu",
+                     "rays1bench_tpu/kernels/megakernel.py:487",
+                     shard_launches["oneshot_iters"], *one_iters),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,10 +23,12 @@ loop nest whose bounce loop closes with a BSYNC more. The full listings go
 beside the libraries, as <library>.sass.
 
 --parent DIR (a parent's kernels/csrc, unpacked with git archive) builds
-the parent's sources with the same flags and prints, for each kernel,
-whether its instructions equal the parent's, function by function in
-order (the functions' names hold a hash of the source path). Needs the
-CUDA toolkit.
+the parent's sources with the same flags and prints, for each function of
+the parent's library, the tree's function with the same instructions (the
+functions' names hold a hash of the source path, and a template flag the
+parent lacked, such as kIters, renames them), or, where none has them, a
+tree function whose loops have the same instructions (addresses aside)
+and the two instruction totals. Needs the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -148,10 +150,19 @@ def disassemble(lib):
                           text=True, check=True).stdout
 
 
-def same_as_parent(text, parent_dir, source):
-    """Whether the functions of `text` (cuobjdump -sass of a tree's library)
-    have the instructions of parent_dir/source built with the same flags,
-    in order; None where the parent has no such source."""
+def loop_bodies(instrs):
+    """The instructions of each loop (loops()), branch addresses stripped."""
+    strip = lambda x: re.sub(r"0x[0-9a-f]+", "", x)
+    return [[(o, strip(x)) for a, o, x in instrs if lo <= a <= hi]
+            for lo, hi, _, _ in loops(instrs)]
+
+
+def parent_matches(text, parent_dir, source):
+    """For each function of parent_dir/source built with the tree's flags:
+    (its instruction count, the tree function of `text` with the same
+    instructions or None, and failing that a tree function whose loops
+    have the same instructions, with its count, or None). None where the
+    parent has no such source."""
     src = os.path.join(parent_dir, source)
     if not os.path.exists(src):
         return None
@@ -159,10 +170,17 @@ def same_as_parent(text, parent_dir, source):
         lib = os.path.join(d, "parent.so")
         subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
                        capture_output=True, text=True, check=True)
-        parent = disassemble(lib)
-    body = lambda t: [[(a, o, x) for a, o, x in f]
-                      for f in parse(t).values()]
-    return body(parent) == body(text)
+        parent = parse(disassemble(lib))
+    tree = parse(text)
+    out = {}
+    for pf, pins in parent.items():
+        same = next((tf for tf, tins in tree.items() if tins == pins), None)
+        loops_same = None if same else next(
+            ((tf, len(tins)) for tf, tins in tree.items()
+             if loops(tins) and loop_bodies(tins) == loop_bodies(pins)),
+            None)
+        out[pf] = (len(pins), same, loops_same)
+    return out
 
 
 def main(argv=None):
@@ -174,11 +192,19 @@ def main(argv=None):
         text = disassemble(lib)
         lib.with_suffix(".sass").write_text(text)
         if args.parent:
-            same = same_as_parent(text, args.parent, source)
-            print(f"[sass] {name}: instructions "
-                  + {None: "(no parent source)", True: "equal to the "
-                     "parent's", False: "differ from the parent's"}[same],
-                  flush=True)
+            matches = parent_matches(text, args.parent, source)
+            if matches is None:
+                print(f"[sass] {name}: no parent source", flush=True)
+            for pf, (n, same, loops_same) in (matches or {}).items():
+                if same:
+                    what = f"instructions equal to the tree's {same}"
+                elif loops_same:
+                    what = (f"loops' instructions equal to the tree's "
+                            f"{loops_same[0]} ({n} instructions against "
+                            f"{loops_same[1]})")
+                else:
+                    what = "no tree function with its instructions or loops"
+                print(f"[sass] {name}: parent {pf}: {what}", flush=True)
         log = lib.with_suffix(".log")
         ptxas = ptxas_report(log.read_text()) if log.exists() else {}
         for func, instrs in parse(text).items():

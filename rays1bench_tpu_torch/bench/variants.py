@@ -42,11 +42,10 @@ variants answer the design questions of the two kernels:
   (static_stride) instead of the counter; each lane one ray of its own
   and no refill (one_ray: the flat body as a nest); at least 10 or 12 resident
   blocks an SM (__launch_bounds__, fewer registers); the flat loop with the
-  topology pre-filled with -1 by the launch instead of the tails; and
-  `rounds`, the tree's kernel with its
-  64-bit total replaced by 32 times its warps' loop rounds, whose ratio to
-  the rays traced is the flat loop's lane occupancy (its total is excluded
-  from the equality check). Then the medium albedo recipe's and the small
+  topology pre-filled with -1 by the launch instead of the tails. The
+  tree's kIters instantiation (debug_iters) then gives each frame's warp
+  trips, whose ratio to 32 times the rays traced is the tree's lane
+  occupancy. Then the medium albedo recipe's and the small
   soft geometry recipe's whole "mega" training step with the tree's and
   the parent's one-shot library in turns, in one process (step_case).
 
@@ -342,16 +341,8 @@ ONE_RAY = """    auto take = [&](bool, int i) {
 GRID = ("  const int grid =\n      S < r1b::kNestRows || blocks < resident "
         "? blocks : resident;")
 BOUNDS = "__global__ void __launch_bounds__(kThreads)\noneshot_kernel("
+# The phase kernel's warp vote at its flat loop's head.
 ANY = "    auto any = [](bool p) { return __any_sync(kFull, p) != 0; };"
-ROUNDS = """    auto any = [&](bool p) {
-      const bool r = __any_sync(kFull, p) != 0;
-      rounds += r ? 1 : 0;
-      return r;
-    };"""
-REDUCE = ("  for (int off = 16; off > 0; off >>= 1) c += "
-          "__shfl_down_sync(kFull, c, off);")
-UNSET = "  unsigned long long c = 0;\n"
-ROUNDS_DECL = "  unsigned long long rounds = 0;\n"
 TAILS = """      if (topo)
         for (int k = b + 1; k <= max_bounces; ++k)
           topo[(size_t)k * N + i] = -1;
@@ -456,11 +447,6 @@ VARIANTS = {
             "(kThreads)", "(kThreads, 12)"))]),
         ("prefill", "tree", [("path_math.cuh", TAILS, ""),
                              ("oneshot.cu", LAUNCH, PREFILL)]),
-        ("rounds", "tree", [("oneshot.cu", ANY, ROUNDS),
-                            ("oneshot.cu", UNSET, UNSET + ROUNDS_DECL),
-                            ("oneshot.cu", REDUCE,
-                             "  c = lane == 0 ? 32ull * rounds : 0ull;\n"
-                             + REDUCE)]),
     ],
     "phase": [
         ("parent", "parent", []),
@@ -522,15 +508,17 @@ def compile_variant(kernel, name, src_dir, subs, out_dir):
                        if "registers" in ln or "stack frame" in ln]
 
 
-def loader(like, path, drop_counter):
-    """A ctypes function of the library at path with like's signature; the
-    parent's backward, one-shot and phase kernels take no counter, so their
-    adapter drops it."""
+def loader(like, path, drop=0):
+    """A ctypes function of the library at path with like's signature, less
+    the `drop` arguments before the stream that a parent's launch lacks:
+    the backward and phase parents take no counter (1); the one-shot
+    parent no counter and no trip total, the respawn parent no first row
+    and no trip total (2)."""
     fn = getattr(ctypes.CDLL(path), like.__name__)
     fn.restype = ctypes.c_int
-    if drop_counter:
-        fn.argtypes = like.argtypes[:-2] + like.argtypes[-1:]
-        return lambda *a: fn(*a[:-2], a[-1])
+    if drop:
+        fn.argtypes = like.argtypes[:-1 - drop] + like.argtypes[-1:]
+        return lambda *a: fn(*a[:-1 - drop], a[-1])
     fn.argtypes = like.argtypes
     return fn
 
@@ -595,8 +583,8 @@ def backward_case(label, scene_name, pad, cfg, move, fns):
 
 def oneshot_case(label, scene_name, pad, cfg, move, topology, fns):
     """One frame through every one-shot variant in turns; every variant's
-    radiance, counts, topology and total (but rounds' total) must equal
-    the tree kernel's."""
+    radiance, counts, topology and total must equal the tree kernel's. The
+    tree's lane occupancy from its kIters instantiation's trips."""
     scene = builders.SCENES[scene_name](cfg.aspect, pad_multiple=pad or 128,
                                         device="cuda")
     spheres = (moved_geometry(scene.spheres, scene_name) if move
@@ -620,17 +608,19 @@ def oneshot_case(label, scene_name, pad, cfg, move, topology, fns):
         same = (all(torch.equal(a, b) for a, b in zip(out[0], want[0]))
                 and torch.equal(out[1], want[1])
                 and (not topology or torch.equal(out[3], want[3]))
-                and (name == "rounds" or int(out[2]) == int(want[2])))
+                and int(out[2]) == int(want[2]))
         if not same:
             raise AssertionError(f"oneshot {name}: {label} differs")
     rays_traced = int(want[2])
-    # The per-ray nest of small tables counts no rounds.
-    paid = int(outs["rounds"][2]) if "rounds" in outs else 0
-    occupancy = f", lane occupancy {rays_traced / paid:.4f}" if paid else ""
+    megakernel._oneshot_kernel = lambda: fns["flat"]
+    trips = int(megakernel._oneshot(packed, *rays, ray_id, cfg, topology,
+                                    True)[4])
+    occupancy = (f", lane occupancy {rays_traced / (32 * trips):.4f} "
+                 f"({trips} warp trips)")
     for name, t in ms.items():
         print(f"[variants] oneshot {label}, {prep.count} rows, {rays_traced} "
               f"rays traced, {name}: {', '.join(f'{x:.4f}' for x in t)} ms"
-              + (occupancy if name == "rounds" else ""), flush=True)
+              + (occupancy if name == "flat" else ""), flush=True)
 
 
 def step_case(label, scene_name, cfg, fns, rounds=5, steps=20):
@@ -854,11 +844,11 @@ def main(argv=None):
     soft_medium = RenderConfig(**FIT, seed=medium, soft_silhouette=0.005)
     if "respawn" in libs:
         like = megakernel._respawn_kernel()
-        respawn({n: loader(like, p, False)
+        respawn({n: loader(like, p, 2 if n == "parent" else 0)
                  for n, p in libs["respawn"].items()})
     if "mega_backward" in libs:
         like = mega_backward._backward_kernel()
-        fns = {n: loader(like, p, n.startswith("parent"))
+        fns = {n: loader(like, p, 1 if n.startswith("parent") else 0)
                for n, p in libs["mega_backward"].items()}
         backward_case("soft fit frame (small, 1280x720 @ 4 @ 10, soft "
                       "0.005)", "small", 8, soft_small, True, fns)
@@ -870,7 +860,7 @@ def main(argv=None):
                       RenderConfig(**FIT, seed=5), False, fns)
     if "oneshot" in libs:
         like = megakernel._oneshot_kernel()
-        fns = {n: loader(like, p, n in ("parent", "nest_float4"))
+        fns = {n: loader(like, p, 2 if n in ("parent", "nest_float4") else 0)
                for n, p in libs["oneshot"].items()}
         oneshot_case("CLI frame (large 1280x720 @ 10 @ 50)", "large", None,
                      get_config("full"), False, False, fns)
@@ -891,7 +881,7 @@ def main(argv=None):
                   "0.005)", "small", soft_small, pair)
     if "phase" in libs:
         like = megakernel._phase_kernel()
-        fns = {n: loader(like, p, n == "parent")
+        fns = {n: loader(like, p, 1 if n == "parent" else 0)
                for n, p in libs["phase"].items()}
         phase_case("CLI wavefront frame, large", "large", fns)
         phase_case("CLI wavefront frame, small (the per-ray nest)", "small",

@@ -18,9 +18,14 @@ torch.optim.Adam step with optax's defaults (betas 0.9 / 0.999, eps 1e-8).
 JAX's `scan_steps` (several steps per dispatch through lax.scan) becomes
 the plain loop of fit_scene.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP item: a
-device mesh (the sharded fused gradient) and fit_camera (the
-differentiable camera constructor).
+With a device mesh (parallel/mesh.py; every rank runs the same step on
+its replica of the parameters), "mega" takes the sharded fused path
+(grad/mega.render_image_mega_sharded) and "pipeline" the sharded plain
+render (parallel/shard.render_image_sharded); each sums the gradient over
+the ranks with one all_reduce, so the replicas stay equal.
+
+Not ported yet, raising NotImplementedError with its ROADMAP item:
+fit_camera (the differentiable camera constructor).
 """
 
 from __future__ import annotations
@@ -34,8 +39,10 @@ import torch
 from rays1bench_tpu_torch.core.config import RenderConfig
 from rays1bench_tpu_torch.core.device import resolve, to_device
 from rays1bench_tpu_torch.grad import checkpoint as ckpt
-from rays1bench_tpu_torch.grad.mega import render_image_mega
+from rays1bench_tpu_torch.grad.mega import (render_image_mega,
+                                            render_image_mega_sharded)
 from rays1bench_tpu_torch.kernels.mega_backward import supported
+from rays1bench_tpu_torch.parallel.shard import render_image_sharded
 from rays1bench_tpu_torch.render.camera import Camera
 from rays1bench_tpu_torch.render.pipeline import render_image
 from rays1bench_tpu_torch.scene.soa_spheres import SphereSOA
@@ -81,19 +88,15 @@ def with_params(spheres: SphereSOA, params: Dict[str, torch.Tensor]
     return dataclasses.replace(spheres, **params)
 
 
-def _pick_engine(spheres: SphereSOA, cfg: RenderConfig, mesh,
-                 engine: str) -> str:
+def _pick_engine(spheres: SphereSOA, cfg: RenderConfig, engine: str) -> str:
     """Resolve engine="auto": "mega" where the fused backward takes the
     scene (kernels/mega_backward.supported: up to 2,755 rows and 50
     bounces), else "pipeline", as the JAX package's _pick_engine does with
-    fused_supported. An explicit "mega" on a scene it cannot take raises.
-    Unlike the JAX package, auto stays on "mega" on the CPU as well: JAX
-    sends the CPU to the pipeline only so that its Pallas interpret mode
-    stays opt-in, and the port's CPU path is plain torch either way."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh (the sharded fused gradient) is not ported: "
-            "ROADMAP.md, queue 1, items 3 and 7")
+    fused_supported, with or without a mesh. An explicit "mega" on a scene
+    it cannot take raises. Unlike the JAX package, auto stays on "mega" on
+    the CPU as well: JAX sends the CPU to the pipeline only so that its
+    Pallas interpret mode stays opt-in, and the port's CPU path is plain
+    torch either way."""
     if engine not in ("auto", "mega", "pipeline"):
         raise ValueError(f"unknown engine {engine!r}")
     fits = supported(spheres.count, cfg)
@@ -112,11 +115,16 @@ def render_for_loss(spheres: SphereSOA, camera: Camera, cfg: RenderConfig,
     """Differentiable linear-radiance render. Through "mega" its value comes
     from the topology kernel, whose albedos are 8-bit
     (megakernel.pack_spheres); through "pipeline" the albedos are exact.
-    Render the target through the same engine."""
-    if _pick_engine(spheres, cfg, mesh, engine) == "mega":
-        img, _ = render_image_mega(spheres, camera, _grad_cfg(cfg))
+    Render the target through the same engine. With a mesh (its 1-D
+    "rays" axis) the render is sharded over its ranks and whole on every
+    rank."""
+    mega = _pick_engine(spheres, cfg, engine) == "mega"
+    if mesh is not None:
+        render = render_image_mega_sharded if mega else render_image_sharded
+        img, _ = render(spheres, camera, _grad_cfg(cfg), mesh)
     else:
-        img, _ = render_image(spheres, camera, _grad_cfg(cfg))
+        render = render_image_mega if mega else render_image
+        img, _ = render(spheres, camera, _grad_cfg(cfg))
     return img
 
 

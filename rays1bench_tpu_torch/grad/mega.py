@@ -29,6 +29,13 @@ cfg.soft_silhouette both paths are soft: the kernel promotes grazes and
 draws the two branches, the topology records the promoted rows, and the
 fused backward and the replay (promote=False) differentiate the two-branch
 estimator at them.
+
+render_image_mega_sharded is the multi-device fused path
+(_FusedSharded): each rank of the mesh runs kernel A on its ray
+slice (parallel/shard.ray_slice) and the image is all-gathered; in the
+backward each rank runs kernel B on the same slice, its ray cotangents
+stay local and go through the rank's raygen VJP to the camera, and one
+all_reduce a step sums the (10, S) column cotangents and the camera's.
 """
 
 from __future__ import annotations
@@ -43,11 +50,12 @@ from rays1bench_tpu_torch.kernels.megakernel import (pack_spheres,
                                                      trace_topology)
 from rays1bench_tpu_torch.kernels.pipeline import render_image_topology
 from rays1bench_tpu_torch.render.camera import Camera
-from rays1bench_tpu_torch.render.pipeline import render_image
+from rays1bench_tpu_torch.render.pipeline import primary_rays, render_image
 from rays1bench_tpu_torch.scene.soa_spheres import SphereSOA
-from rays1bench_tpu_torch.scene.spheres import PreparedSpheres
+from rays1bench_tpu_torch.scene.spheres import PreparedSpheres, prepare
 
 _PREP_FIELDS = tuple(f.name for f in dataclasses.fields(PreparedSpheres))
+_CAM_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
 
 
 class _Fused(torch.autograd.Function):
@@ -106,3 +114,100 @@ def render_image_mega(spheres_soa: SphereSOA, camera: Camera,
     replay, _ = render_image(spheres_soa, camera,
                              cfg.replace(early_exit=False), topology=topo)
     return img + (replay - replay.detach()), total
+
+
+def shard_forward(prep: PreparedSpheres, camera: Camera, cfg: RenderConfig,
+                  ray_id):
+    """Kernel A on one rank's ray slice (parallel/shard.ray_slice), no
+    collective: ((rr, rg, rb), cnt, total, topo) of trace_topology on the
+    slice's primary rays, and those rays."""
+    pixel = ray_id // cfg.spp
+    rays = [r.contiguous() for r in primary_rays(
+        camera, cfg, (pixel % cfg.width).to(torch.float32),
+        (pixel // cfg.width).to(torch.float32), ray_id)]
+    return trace_topology(pack_spheres(prep), *rays, ray_id, cfg), rays
+
+
+class _FusedSharded(torch.autograd.Function):
+    """Kernel A on this rank's slice, the radiance all-gathered; kernel B on
+    the same slice, with one all_reduce of the column and camera
+    cotangents. Inputs: the prepared sphere columns and the camera's
+    tensors (the raygen is inside, so that the camera VJP joins the
+    all_reduce)."""
+
+    @staticmethod
+    def forward(ctx, cfg, mesh, index, ray_id, *tensors):
+        from rays1bench_tpu_torch.parallel.shard import all_gather
+        prep = PreparedSpheres(*tensors[:len(_PREP_FIELDS)])
+        camera = Camera(*tensors[len(_PREP_FIELDS):])
+        ((rr, rg, rb), _, total, topo), rays = shard_forward(prep, camera,
+                                                             cfg, ray_id)
+        parts = all_gather(torch.stack([rr, rg, rb]), mesh)
+        total = total.clone()
+        torch.distributed.all_reduce(total)
+        ctx.cfg, ctx.index = cfg, index
+        ctx.save_for_backward(ray_id, topo, *rays, *tensors)
+        ctx.mark_non_differentiable(total)
+        return parts, total
+
+    @staticmethod
+    def backward(ctx, ct_parts, _total):
+        ray_id, topo, *rest = ctx.saved_tensors
+        rays, tensors = rest[:6], rest[6:]
+        n_prep = len(_PREP_FIELDS)
+        prep = PreparedSpheres(*tensors[:n_prep])
+        ct_r, ct_g, ct_b = ct_parts[ctx.index]
+        grads, ray_cts = mega_backward.backward(
+            prep, *rays, ray_id, ct_r.contiguous(), ct_g.contiguous(),
+            ct_b.contiguous(), topo, ctx.cfg)
+        need_cam = ctx.needs_input_grad[4 + n_prep:]
+        cam_cts = [None] * len(_CAM_FIELDS)
+        if any(need_cam):
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(True)
+                          for t in tensors[n_prep:]]
+                pixel = ray_id // ctx.cfg.spp
+                again = primary_rays(
+                    Camera(*leaves), ctx.cfg,
+                    (pixel % ctx.cfg.width).to(torch.float32),
+                    (pixel // ctx.cfg.width).to(torch.float32), ray_id)
+                got = torch.autograd.grad(again, leaves, ray_cts,
+                                          allow_unused=True)
+            cam_cts = [None if not need else
+                       (torch.zeros_like(t) if g is None else g)
+                       for need, g, t in zip(need_cam, got, leaves)]
+        live = [c for c in cam_cts if c is not None]
+        flat = torch.cat([grads.reshape(-1)] + [c.reshape(-1) for c in live])
+        torch.distributed.all_reduce(flat)
+        sizes = [grads.numel()] + [c.numel() for c in live]
+        pieces = iter(flat.split(sizes))
+        grads = next(pieces).view_as(grads)
+        cam_cts = [None if c is None else next(pieces).view_as(c)
+                   for c in cam_cts]
+        by_name = dict(zip(mega_backward.GRAD_ROWS, grads))
+        prep_cts = tuple(by_name.get(name) for name in _PREP_FIELDS)
+        return (None, None, None, None) + prep_cts + tuple(cam_cts)
+
+
+def render_image_mega_sharded(spheres_soa: SphereSOA, camera: Camera,
+                              cfg: RenderConfig, mesh,
+                              axis_name: str = "rays"):
+    """Differentiable multi-device render through the fused kernels: the
+    contract of render_image_mega, with primary rays split over `mesh`'s
+    `axis_name` axis (parallel/shard.ray_slice). The image, on every rank,
+    equals render_image_mega's bit for bit; gradients match it up to the
+    order of float sums (per-rank partial sums, then the all_reduce). A
+    loss must be computed from the image on every rank alike: each rank
+    keeps its slice of the image's cotangent."""
+    from rays1bench_tpu_torch.parallel.mesh import layout
+    from rays1bench_tpu_torch.parallel.shard import (_mesh_order,
+                                                     assemble_rays,
+                                                     ray_slice)
+    n_dev, _, d, _ = layout(mesh, axis_name)
+    prep = prepare(spheres_soa)
+    ray_id = ray_slice(cfg, n_dev, 1, d, 0, spheres_soa.center_x.device)
+    parts, total = _FusedSharded.apply(
+        cfg, mesh, _mesh_order(mesh).index(torch.distributed.get_rank()),
+        ray_id, *(getattr(prep, f) for f in _PREP_FIELDS),
+        *(getattr(camera, f) for f in _CAM_FIELDS))
+    return assemble_rays(parts, cfg, (n_dev, 1)), total

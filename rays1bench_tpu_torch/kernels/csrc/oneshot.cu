@@ -62,6 +62,16 @@
 // 0)) depends on the row only, so each block stages it as a fourth payload
 // row. Plain version: megakernel.soft_sweep and soft_hit_record under
 // render.integrator.two_branch.
+//
+// Trips (kIters, the Pallas kernel's debug_iters): a warp's serial work is
+// the trips of its loop. The flat loop counts, on every lane alike, the
+// rounds in which its warp still held a ray (the `any` at the loop's head);
+// the thread-per-ray path, whose warp runs a bounce while any lane's ray
+// lives, counts the largest count of its lanes. Each warp adds its trips to
+// a 64-bit total with one atomicAdd. The flat loop's trips depend on the
+// order in which the lanes take the rays, so only their bounds are fixed:
+// 32 x trips >= the segments traced. The kIters = false instantiations
+// compile to the kernel without it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,7 +82,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-template <bool kSoft>
+template <bool kSoft, bool kIters>
 __global__ void __launch_bounds__(kThreads)
 oneshot_kernel(const float* __restrict__ spheres, int S,
                const float* __restrict__ ox_in, const float* __restrict__ oy_in,
@@ -84,7 +94,8 @@ oneshot_kernel(const float* __restrict__ spheres, int S,
                float* __restrict__ rg_out, float* __restrict__ rb_out,
                int* __restrict__ cnt_out, int* __restrict__ topo,
                unsigned long long* __restrict__ total,
-               int* __restrict__ work) {
+               int* __restrict__ work,
+               unsigned long long* __restrict__ iters) {
   extern __shared__ float4 hot[];  // (S) float4, then (3, S) payload
   float* pay = reinterpret_cast<float*>(hot + S);  // soft: a 4th row, sr
   __shared__ unsigned long long warp_sums[kThreads / 32];
@@ -99,6 +110,7 @@ oneshot_kernel(const float* __restrict__ spheres, int S,
   __syncthreads();
 
   unsigned long long c = 0;
+  int trips = 0;
   if (S < r1b::kNestRows) {
     const int i = blockIdx.x * kThreads + tid;
     if (i < N)
@@ -107,6 +119,7 @@ oneshot_kernel(const float* __restrict__ spheres, int S,
                                   max_bounces, t_min, seed, inv_eps,
                                   near_cut, rr_out, rg_out, rb_out, cnt_out,
                                   topo);
+    if (kIters) trips = __reduce_max_sync(kFull, (unsigned)c);
   } else {
     auto take = [&](bool need, int) {
       const unsigned m = __ballot_sync(kFull, need);
@@ -115,7 +128,11 @@ oneshot_kernel(const float* __restrict__ spheres, int S,
       base = __shfl_sync(kFull, base, 0);
       return base + __popc(m & ((1u << lane) - 1u));
     };
-    auto any = [](bool p) { return __any_sync(kFull, p) != 0; };
+    auto any = [&](bool p) {
+      const bool r = __any_sync(kFull, p) != 0;
+      if (kIters) trips += r ? 1 : 0;
+      return r;
+    };
     c = r1b::oneshot_lane<kSoft>(hot, pay, S, ox_in, oy_in, oz_in, dx_in,
                                  dy_in, dz_in, ray_id, N, n_rays,
                                  max_bounces, t_min, seed, inv_eps, near_cut,
@@ -123,6 +140,7 @@ oneshot_kernel(const float* __restrict__ spheres, int S,
                                  any);
   }
 
+  if (kIters && lane == 0) atomicAdd(iters, (unsigned long long)trips);
   for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(kFull, c, off);
   if (lane == 0) warp_sums[tid >> 5] = c;
   __syncthreads();
@@ -140,16 +158,20 @@ oneshot_kernel(const float* __restrict__ spheres, int S,
 // input order; topo is (max_bounces+1, N) row-major, or null for no
 // topology; *total and the ray counter *work must be zero on entry; N > 0.
 // soft_eps != 0 runs the soft mode with inv_eps = float32(1 / soft_eps) and
-// near_cut = float32(-9.2 * soft_eps).
+// near_cut = float32(-9.2 * soft_eps). iters: null, or a zeroed 64-bit word
+// that receives the warps' loop trips (the kIters instantiations).
 extern "C" int rays1_oneshot_launch(
     const float* spheres, int S, const float* ox, const float* oy,
     const float* oz, const float* dx, const float* dy, const float* dz,
     const int* ray_id, int N, int n_rays, int max_bounces, float t_min,
     uint32_t seed, float soft_eps, float inv_eps, float near_cut, float* rr,
     float* rg, float* rb, int* cnt, int* topo, unsigned long long* total,
-    int* work, void* stream) {
+    int* work, unsigned long long* iters, void* stream) {
   const bool soft = soft_eps != 0.0f;
-  auto kernel = soft ? oneshot_kernel<true> : oneshot_kernel<false>;
+  auto kernel = soft ? (iters ? oneshot_kernel<true, true>
+                              : oneshot_kernel<true, false>)
+                     : (iters ? oneshot_kernel<false, true>
+                              : oneshot_kernel<false, false>);
   const size_t smem =
       sizeof(float) * (r1b::kNumRows + (soft ? 1 : 0)) * (size_t)S;
   cudaError_t err = cudaFuncSetAttribute(
@@ -169,6 +191,7 @@ extern "C" int rays1_oneshot_launch(
       S < r1b::kNestRows || blocks < resident ? blocks : resident;
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       spheres, S, ox, oy, oz, dx, dy, dz, ray_id, N, n_rays, max_bounces,
-      t_min, seed, inv_eps, near_cut, rr, rg, rb, cnt, topo, total, work);
+      t_min, seed, inv_eps, near_cut, rr, rg, rb, cnt, topo, total, work,
+      iters);
   return (int)cudaGetLastError();
 }

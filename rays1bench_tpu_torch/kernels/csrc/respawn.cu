@@ -44,6 +44,17 @@
 // Counting: each thread's count is reduced over its warp, then over the
 // block in shared memory, and added to the 64-bit total with one atomicAdd
 // per block.
+//
+// Rows: a launch covers the image rows [y_lo, y_hi) (the whole frame, or a
+// device's band of a sharded render) and writes per-pixel outputs of the
+// band, row y_lo first. y_lo is a multiple of the block height, so a band's
+// warps are the whole frame's warps.
+//
+// Trips (kIters, the Pallas kernel's debug_iters): a warp's serial work is
+// the trips of its flat loop, which it runs as long as its busiest lane, and
+// a lane runs one trip a segment it counts. Each warp adds the largest count
+// of its lanes to a 64-bit trip total with one atomicAdd. The kIters = false
+// instantiation compiles to the kernel without it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,14 +68,16 @@ constexpr int kBlockX = kWarpW * kWarpsX;    // 16
 constexpr int kBlockY = kWarpH * kWarpsY;    // 8
 constexpr int kThreads = kBlockX * kBlockY;  // 128
 
+template <bool kIters>
 __global__ void __launch_bounds__(kThreads)
 respawn_kernel(const float* __restrict__ spheres, int S,
-               const float* __restrict__ cam_in, int width, int height,
+               const float* __restrict__ cam_in, int width, int y_hi,
                int spp, int s_lo, int s_hi, int max_bounces, float t_min,
                uint32_t seed, float inv_w, float inv_h,
                float* __restrict__ rr_out, float* __restrict__ rg_out,
                float* __restrict__ rb_out, int* __restrict__ cnt_out,
-               unsigned long long* __restrict__ total) {
+               unsigned long long* __restrict__ total, int y_lo,
+               unsigned long long* __restrict__ iters) {
   extern __shared__ float4 hot[];  // (S) float4, then (3, S) payload
   float* pay = reinterpret_cast<float*>(hot + S);
   __shared__ float cam[19];
@@ -78,19 +91,25 @@ respawn_kernel(const float* __restrict__ spheres, int S,
   const int lane = tid & 31, warp = tid >> 5;
   const int x = blockIdx.x * kBlockX + (warp % kWarpsX) * kWarpW +
                 lane % kWarpW;
-  const int y = blockIdx.y * kBlockY + (warp / kWarpsX) * kWarpH +
-                lane / kWarpW;
+  const int row = blockIdx.y * kBlockY + (warp / kWarpsX) * kWarpH +
+                  lane / kWarpW;
+  const int y = y_lo + row;
   int cnt = 0;
-  if (x < width && y < height) {
+  if (x < width && y < y_hi) {
     const int pid = y * width + x;
+    const int out = row * width + x;
     float rr = 0.0f, rg = 0.0f, rb = 0.0f;
     cnt = r1b::respawn_pixel(hot, pay, S, cam, pid, (float)x, (float)y, spp,
                              s_lo, s_hi, max_bounces, t_min, seed, inv_w,
                              inv_h, rr, rg, rb);
-    rr_out[pid] = rr;
-    rg_out[pid] = rg;
-    rb_out[pid] = rb;
-    cnt_out[pid] = cnt;
+    rr_out[out] = rr;
+    rg_out[out] = rg;
+    rb_out[out] = rb;
+    cnt_out[out] = cnt;
+  }
+  if (kIters) {
+    const int trips = __reduce_max_sync(0xFFFFFFFFu, cnt);
+    if (lane == 0) atomicAdd(iters, (unsigned long long)trips);
   }
 
   unsigned long long c = (unsigned long long)cnt;
@@ -107,21 +126,26 @@ respawn_kernel(const float* __restrict__ spheres, int S,
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the attribute call or the
-// launch (0 on success). Outputs are per pixel in image order; *total must
-// be zero on entry.
+// launch (0 on success). Traces the rows [y_lo, y_hi) (0 <= y_lo < y_hi, y_lo
+// a multiple of 8) of a frame of width pixels; inv_h is 1 / the frame's
+// height. Outputs are per pixel of the band in image order; *total must be
+// zero on entry. iters: null, or a zeroed 64-bit word that receives the
+// warps' loop trips (the kIters instantiation).
 extern "C" int rays1_respawn_launch(
-    const float* spheres, int S, const float* cam, int width, int height,
+    const float* spheres, int S, const float* cam, int width, int y_hi,
     int spp, int s_lo, int s_hi, int max_bounces, float t_min, uint32_t seed,
     float inv_w, float inv_h, float* rr, float* rg, float* rb, int* cnt,
-    unsigned long long* total, void* stream) {
+    unsigned long long* total, int y_lo, unsigned long long* iters,
+    void* stream) {
+  auto kernel = iters ? respawn_kernel<true> : respawn_kernel<false>;
   const size_t smem = sizeof(float) * r1b::kNumRows * (size_t)S;
   cudaError_t err = cudaFuncSetAttribute(
-      respawn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((width + kBlockX - 1) / kBlockX,
-                  (height + kBlockY - 1) / kBlockY);
-  respawn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      spheres, S, cam, width, height, spp, s_lo, s_hi, max_bounces, t_min,
-      seed, inv_w, inv_h, rr, rg, rb, cnt, total);
+                  (y_hi - y_lo + kBlockY - 1) / kBlockY);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      spheres, S, cam, width, y_hi, spp, s_lo, s_hi, max_bounces, t_min,
+      seed, inv_w, inv_h, rr, rg, rb, cnt, total, y_lo, iters);
   return (int)cudaGetLastError();
 }

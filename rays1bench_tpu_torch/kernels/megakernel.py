@@ -26,10 +26,23 @@ mt*32 + param) and the 19-float camera row of `pack_camera`. `ref_idx` and
 `fuzz` therefore decode to the same floats as in the JAX kernel, which is
 what makes ray counts comparable. Dropped TPU workarounds: the pixel-tile
 slot permutation (the kernels read and write in ray or image order),
-`tile_rays`, `unroll`, `sync_every`, `debug_iters` and the wavefront's
-row-granular argsort compaction (see trace_wavefront). Without `sync_every`
-there is no overshoot past max_bounces, so the topology write guard of the
-Pallas kernel has nothing to guard.
+`tile_rays`, `unroll`, `sync_every` and the wavefront's row-granular
+argsort compaction (see trace_wavefront). Without `sync_every` there is no
+overshoot past max_bounces, so the topology write guard of the Pallas
+kernel has nothing to guard.
+
+`debug_iters` (trace_respawn, trace_oneshot) counts serial work as the
+Pallas kernels' per-tile `while_loop` trips do, but per warp, the unit
+that runs serially on the card: the sum over warps of their loop's trips,
+as one int64 (the kernels' kIters instantiations). A warp runs as long as
+its busiest lane, so the respawn kernel's trips are a function of the
+per-pixel counts on its 8x4-pixel warps (`respawn_iters_reference`), and
+so are the one-shot kernel's below kNestRows rows, a thread per ray on
+warps of 32 consecutive rays (`oneshot_iters_reference`). From kNestRows
+rows up the one-shot kernel's lanes refill from a counter, and its trips
+depend on the order the lanes take the rays in: the plain version gives
+the fewest any order could take, and the kernel is held to it as a bound.
+The phase kernel keeps no counter.
 
 `trace_topology` and `trace_oneshot` take the soft-silhouette mode
 (cfg.soft_silhouette > 0), as the Pallas `_kernel` does with `soft_eps`:
@@ -67,10 +80,21 @@ _MAX_TABLE_BYTES = 232448 - 1024
 
 # Kernel launches made by trace_respawn, by trace_topology and
 # trace_oneshot (one kernel), and by wavefront_phase (one per call on a CUDA
-# tensor that has rays to advance).
+# tensor that has rays to advance); those of the respawn and one-shot
+# kernels' kIters instantiations (debug_iters=True) apart.
 LAUNCHES = 0
 ONESHOT_LAUNCHES = 0
 PHASE_LAUNCHES = 0
+RESPAWN_ITERS_LAUNCHES = 0
+ONESHOT_ITERS_LAUNCHES = 0
+# The kernels' warp layouts, for the plain versions of their trip counts:
+# the respawn kernel's warps cover WARP_PIXELS (width, height) of the image
+# and its blocks BLOCK_ROWS rows (csrc/respawn.cu); the one-shot kernel
+# takes a thread per ray below NEST_ROWS table rows (r1b::kNestRows).
+WARP_LANES = 32
+WARP_PIXELS = (8, 4)
+BLOCK_ROWS = 8
+NEST_ROWS = 16
 # Float planes of the wavefront state: ox oy oz dx dy dz ar ag ab rr rg rb.
 STATE_PLANES = 12
 
@@ -275,6 +299,44 @@ def trace_respawn_reference(packed: torch.Tensor, cam: torch.Tensor, pid, x,
     return tuple(sums), cnt
 
 
+def _rows(cfg: RenderConfig, rows):
+    y_lo, y_hi = (0, cfg.height) if rows is None else rows
+    if not (0 <= y_lo <= y_hi <= cfg.height
+            and (y_lo % BLOCK_ROWS == 0 or y_lo == y_hi)):
+        raise ValueError(f"rows {rows}: a band [y_lo, y_hi) of [0, "
+                         f"{cfg.height}] starting at a multiple of "
+                         f"{BLOCK_ROWS}")
+    return y_lo, y_hi
+
+
+def respawn_iters_reference(cnt: torch.Tensor, width: int) -> torch.Tensor:
+    """Plain version of the respawn kernel's trip count: cnt, the
+    per-pixel counts of a band of whole rows in image order (a frame, or a
+    band starting at a multiple of BLOCK_ROWS rows), cut into the kernel's
+    8x4-pixel warps; each warp runs as long as its busiest pixel. Returns
+    the sum over warps of their largest count (int64 0-dim)."""
+    ww, wh = WARP_PIXELS
+    c = cnt.reshape(-1, width).to(torch.int64)
+    c = torch.nn.functional.pad(c, (0, -width % ww, 0, -c.shape[0] % wh))
+    c = c.reshape(c.shape[0] // wh, wh, c.shape[1] // ww, ww)
+    return c.amax(dim=(1, 3)).sum()
+
+
+def oneshot_iters_reference(cnt: torch.Tensor, s_count: int) -> torch.Tensor:
+    """Plain version of the one-shot kernel's trip count, from its per-ray
+    counts in input order. Below NEST_ROWS table rows (a thread per ray):
+    the sum over warps of 32 consecutive rays of their largest count,
+    which the kernel equals. From NEST_ROWS up (the flat loop, whose lanes
+    refill from a counter): a ray holds a lane for max(count, 1) trips (a
+    padding ray one), so no order takes fewer than ceil(sum / 32) trips;
+    the kernel is held to that bound. Returns an int64 0-dim tensor."""
+    c = cnt.to(torch.int64)
+    if s_count >= NEST_ROWS:
+        return (c.clamp_min(1).sum() + WARP_LANES - 1) // WARP_LANES
+    c = torch.nn.functional.pad(c, (0, -c.shape[0] % WARP_LANES))
+    return c.reshape(-1, WARP_LANES).amax(dim=1).sum()
+
+
 def check_tensor(name, t, dtype, shape, device):
     if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
         raise ValueError(f"{name}: expected {dtype} {shape} on {device}, got "
@@ -297,24 +359,30 @@ def _respawn_kernel():
     fn = lib.rays1_respawn_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, i, p, i, i, i, i, i, i, f, ctypes.c_uint32, f, f,
-                   p, p, p, p, p, p]
+                   p, p, p, p, p, i, p, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def trace_respawn(packed: torch.Tensor, cam: torch.Tensor,
-                  cfg: RenderConfig, sample_span=None):
-    """Trace every sample of every pixel of cfg's image.
+                  cfg: RenderConfig, sample_span=None, rows=None,
+                  debug_iters: bool = False):
+    """Trace every sample of every pixel of cfg's image, or of a band of
+    its rows.
 
     packed: float32 (7, S) from pack_spheres; cam: float32 (19,) from
     pack_camera; both on one device. sample_span: optional (s_lo, s_hi)
-    slice of [0, spp).
+    slice of [0, spp). rows: optional (y_lo, y_hi) band of image rows, y_lo
+    a multiple of BLOCK_ROWS (a sharded render's pixel band); default all.
 
-    Returns ((rr, rg, rb) float32[H*W] per-pixel sample sums in image order,
-    row 0 = bottom; cnt int32[H*W] rays traced per pixel; total int64 0-dim
-    tensor, the ray count). CUDA tensors launch the kernel of csrc/respawn.cu
-    on the current stream; CPU tensors run trace_respawn_reference."""
-    global LAUNCHES
+    Returns ((rr, rg, rb) float32[P] per-pixel sample sums of the band's P
+    pixels in image order, row y_lo first (row 0 = bottom); cnt int32[P]
+    rays traced per pixel; total int64 0-dim tensor, the ray count), and
+    with debug_iters the warps' loop trips summed (int64 0-dim; the
+    kernel's kIters instantiation, respawn_iters_reference on the CPU).
+    CUDA tensors launch the kernel of csrc/respawn.cu on the current stream
+    (none for an empty band); CPU tensors run trace_respawn_reference."""
+    global LAUNCHES, RESPAWN_ITERS_LAUNCHES
     hard_only(cfg, "respawn")
     device = packed.device
     s_count = packed.shape[1] if packed.dim() == 2 else -1
@@ -322,35 +390,48 @@ def trace_respawn(packed: torch.Tensor, cam: torch.Tensor,
                  device)
     check_tensor("cam", cam, torch.float32, (CAMERA_FLOATS,), device)
     s_lo, s_hi = _span(cfg, sample_span)
-    npix = cfg.num_pixels
+    y_lo, y_hi = _rows(cfg, rows)
+    npix = (y_hi - y_lo) * cfg.width
 
     if device.type == "cpu":
-        pid = torch.arange(npix, dtype=torch.int32)
+        pid = torch.arange(y_lo * cfg.width, y_hi * cfg.width,
+                           dtype=torch.int32)
         x = (pid % cfg.width).to(torch.float32)
         y = (pid // cfg.width).to(torch.float32)
         rad, cnt = trace_respawn_reference(packed, cam, pid, x, y, cfg,
                                            (s_lo, s_hi))
-        return rad, cnt, cnt.sum(dtype=torch.int64)
+        out = (rad, cnt, cnt.sum(dtype=torch.int64))
+        return out + (respawn_iters_reference(cnt, cfg.width),) \
+            if debug_iters else out
     if device.type != "cuda":
         raise ValueError(f"trace_respawn runs on cuda or cpu, not {device}")
     check_table_fits(s_count)
-    if npix * cfg.spp >= 2 ** 31:
+    if cfg.num_pixels * cfg.spp >= 2 ** 31:
         raise ValueError("ray ids must fit in int32")
 
-    fn = _respawn_kernel()
     rr, rg, rb = (torch.empty(npix, dtype=torch.float32, device=device)
                   for _ in range(3))
     cnt = torch.empty(npix, dtype=torch.int32, device=device)
-    total = torch.zeros(1, dtype=torch.int64, device=device)
-    err = fn(packed.data_ptr(), s_count, cam.data_ptr(), cfg.width,
-             cfg.height, cfg.spp, s_lo, s_hi, cfg.max_bounces, cfg.t_min,
-             cfg.seed, 1.0 / cfg.width, 1.0 / cfg.height,
-             rr.data_ptr(), rg.data_ptr(), rb.data_ptr(), cnt.data_ptr(),
-             total.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"respawn kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return (rr, rg, rb), cnt, total[0]
+    # The 64-bit ray total, then the trip total: one fill.
+    scratch = torch.zeros(2 if debug_iters else 1, dtype=torch.int64,
+                          device=device)
+    if npix:
+        err = _respawn_kernel()(
+            packed.data_ptr(), s_count, cam.data_ptr(), cfg.width, y_hi,
+            cfg.spp, s_lo, s_hi, cfg.max_bounces, cfg.t_min, cfg.seed,
+            1.0 / cfg.width, 1.0 / cfg.height, rr.data_ptr(), rg.data_ptr(),
+            rb.data_ptr(), cnt.data_ptr(), scratch.data_ptr(), y_lo,
+            scratch.data_ptr() + 8 if debug_iters else None,
+            torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"respawn kernel launch failed: cudaError "
+                               f"{err}")
+        if debug_iters:
+            RESPAWN_ITERS_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+    out = ((rr, rg, rb), cnt, scratch[0])
+    return out + (scratch[1],) if debug_iters else out
 
 
 def trace_topology_reference(packed: torch.Tensor, ox, oy, oz, dx, dy, dz,
@@ -437,16 +518,17 @@ def _oneshot_kernel():
     fn = lib.rays1_oneshot_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, f, ctypes.c_uint32,
-                   f, f, f, p, p, p, p, p, p, p, p]
+                   f, f, f, p, p, p, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _oneshot(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
-             cfg: RenderConfig, emit_topology: bool):
+             cfg: RenderConfig, emit_topology: bool,
+             debug_iters: bool = False):
     """trace_oneshot and trace_topology: ((rr, rg, rb), cnt, total, topo or
-    None)."""
-    global ONESHOT_LAUNCHES
+    None, iters or None)."""
+    global ONESHOT_LAUNCHES, ONESHOT_ITERS_LAUNCHES
     device = packed.device
     n = ox.shape[0] if ox.dim() == 1 else -1
     s_count = packed.shape[1] if packed.dim() == 2 else -1
@@ -458,7 +540,9 @@ def _oneshot(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
         rad, cnt, topo = trace_topology_reference(packed, ox, oy, oz, dx, dy,
                                                   dz, ray_id, cfg)
         return (rad, cnt, cnt.sum(dtype=torch.int64),
-                topo if emit_topology else None)
+                topo if emit_topology else None,
+                oneshot_iters_reference(cnt, s_count) if debug_iters
+                else None)
     if device.type != "cuda":
         raise ValueError(f"the one-shot kernel runs on cuda or cpu, not "
                          f"{device}")
@@ -471,10 +555,13 @@ def _oneshot(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
     cnt = torch.empty(n, dtype=torch.int32, device=device)
     topo = (torch.empty((cfg.max_bounces + 1, n), dtype=torch.int32,
                         device=device) if emit_topology else None)
-    # The 64-bit ray total, then the kernel's int32 ray counter: one fill.
-    scratch = torch.zeros(2, dtype=torch.int64, device=device)
+    # The 64-bit ray total, the kernel's int32 ray counter, then the trip
+    # total: one fill.
+    scratch = torch.zeros(3 if debug_iters else 2, dtype=torch.int64,
+                          device=device)
+    iters = scratch[2] if debug_iters else None
     if n == 0:
-        return (rr, rg, rb), cnt, scratch[0], topo
+        return (rr, rg, rb), cnt, scratch[0], topo, iters
     soft = cfg.soft_silhouette
     fn = _oneshot_kernel()
     err = fn(packed.data_ptr(), s_count, ox.data_ptr(), oy.data_ptr(),
@@ -484,11 +571,15 @@ def _oneshot(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
              near_cut(soft), rr.data_ptr(), rg.data_ptr(), rb.data_ptr(),
              cnt.data_ptr(), None if topo is None else topo.data_ptr(),
              scratch.data_ptr(), scratch.data_ptr() + 8,
+             scratch.data_ptr() + 16 if debug_iters else None,
              torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"oneshot kernel launch failed: cudaError {err}")
-    ONESHOT_LAUNCHES += 1
-    return (rr, rg, rb), cnt, scratch[0], topo
+    if debug_iters:
+        ONESHOT_ITERS_LAUNCHES += 1
+    else:
+        ONESHOT_LAUNCHES += 1
+    return (rr, rg, rb), cnt, scratch[0], topo, iters
 
 
 def trace_topology(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
@@ -505,19 +596,24 @@ def trace_topology(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
     tensors launch the kernel of csrc/oneshot.cu on the current stream,
     which writes every topology plane itself; CPU tensors run
     trace_topology_reference. cfg.soft_silhouette > 0 runs the soft mode
-    in either; the topology then holds the promoted rows."""
-    return _oneshot(packed, ox, oy, oz, dx, dy, dz, ray_id, cfg, True)
+    in either; the topology then holds the promoted rows. No debug_iters
+    here, as trace_pallas refuses it with emit_topology."""
+    return _oneshot(packed, ox, oy, oz, dx, dy, dz, ray_id, cfg, True)[:4]
 
 
 def trace_oneshot(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, ray_id,
-                  cfg: RenderConfig):
+                  cfg: RenderConfig, debug_iters: bool = False):
     """Trace N given primary rays to completion: the
     one-shot render engine (trace_pallas without topology). Same inputs as
     trace_topology; returns ((rr, rg, rb) float32[N], cnt int32[N], total
-    int64 0-dim tensor). The kernel of csrc/oneshot.cu writes no topology
-    and the wrapper allocates none; the plain version is
+    int64 0-dim tensor), and with debug_iters the warps' loop trips summed
+    (int64 0-dim: the kernel's kIters instantiation; on the CPU
+    oneshot_iters_reference). The kernel of csrc/oneshot.cu writes no
+    topology and the wrapper allocates none; the plain version is
     trace_topology_reference."""
-    return _oneshot(packed, ox, oy, oz, dx, dy, dz, ray_id, cfg, False)[:3]
+    rad, cnt, total, _, iters = _oneshot(packed, ox, oy, oz, dx, dy, dz,
+                                         ray_id, cfg, False, debug_iters)
+    return (rad, cnt, total, iters) if debug_iters else (rad, cnt, total)
 
 
 def wavefront_spans(schedule, max_bounces: int):

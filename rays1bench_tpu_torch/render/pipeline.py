@@ -25,7 +25,7 @@ from rays1bench_tpu_torch.core.vecmath import sqrt
 from rays1bench_tpu_torch.render.camera import Camera
 from rays1bench_tpu_torch.render.integrator import trace
 from rays1bench_tpu_torch.scene.soa_spheres import SphereSOA
-from rays1bench_tpu_torch.scene.spheres import prepare
+from rays1bench_tpu_torch.scene.spheres import PreparedSpheres, prepare
 
 
 def primary_rays(camera: Camera, cfg: RenderConfig, x, y, ray_id):
@@ -50,16 +50,35 @@ def render_image(spheres_soa: SphereSOA, camera: Camera, cfg: RenderConfig,
 
     Differentiable with respect to the SphereSOA and camera tensors when
     cfg.early_exit is False. Chunks of cfg.ray_chunk rays bound the sweep's
-    (chunk, S) temporaries. Under autograd every chunk's graph lives until
-    the backward; in index and replay mode `remat` (default: on when the
-    frame has more than one chunk, as in the JAX pipeline) checkpoints each
-    bounce so that only its inputs and rows stay saved.
+    (chunk, S) temporaries (trace_rays).
 
     Returns (image float32[H, W, 3] per-pixel mean radiance, row 0 at the
     bottom; num_rays int64 0-dim tensor, rays traced including bounces)."""
-    spheres = prepare(spheres_soa)
     device = spheres_soa.center_x.device
-    n = cfg.num_primary_rays
+    ray_id = torch.arange(cfg.num_primary_rays, dtype=torch.int32,
+                          device=device)
+    rad, num_rays = trace_rays(prepare(spheres_soa), camera, ray_id, cfg,
+                               topology, remat)
+    image = rad.reshape(cfg.height, cfg.width, cfg.spp, 3).mean(dim=2)
+    return image, num_rays
+
+
+def trace_rays(spheres: PreparedSpheres, camera: Camera, ray_id,
+               cfg: RenderConfig, topology=None, remat=None):
+    """Generate and trace the primary rays of the given global ids (int32[N]
+    in any order), cfg.ray_chunk at a time: the chunk body of render_image
+    and the counterpart of the JAX pipeline's _trace_chunk, which the
+    sharded and retried renders (parallel/) run on their slices. Ids >=
+    cfg.num_primary_rays are padding: never alive, never counted.
+
+    topology: optional int32[max_bounces+1, N] rows of these rays (replay
+    mode, see render_image). Under autograd every chunk's graph lives until
+    the backward; in index and replay mode `remat` (default: on when there
+    is more than one chunk, as in the JAX pipeline) checkpoints each bounce
+    so that only its inputs and rows stay saved.
+
+    Returns (radiance float32[N, 3]; num_rays int64 0-dim tensor)."""
+    n = ray_id.shape[0]
     if remat is None:
         remat = n > cfg.ray_chunk
     hit_index = None
@@ -69,28 +88,27 @@ def render_image(spheres_soa: SphereSOA, camera: Camera, cfg: RenderConfig,
             closest_hit_index
         hit_index = lambda *r: closest_hit_index(spheres, *r, cfg.t_min)
     rad = []
-    num_rays = torch.zeros((), dtype=torch.int64, device=device)
+    num_rays = torch.zeros((), dtype=torch.int64, device=ray_id.device)
     for lo in range(0, n, cfg.ray_chunk):
-        ray_id = torch.arange(lo, min(lo + cfg.ray_chunk, n),
-                              dtype=torch.int32, device=device)
-        pixel = ray_id // cfg.spp
+        ids = ray_id[lo:lo + cfg.ray_chunk]
+        pixel = ids // cfg.spp
         x = (pixel % cfg.width).to(torch.float32)
         y = (pixel // cfg.width).to(torch.float32)
-        rays = primary_rays(camera, cfg, x, y, ray_id)
+        rays = primary_rays(camera, cfg, x, y, ids)
         topo = None
         if topology is not None:
-            idx = topology[:, lo:lo + ray_id.shape[0]]
+            idx = topology[:, lo:lo + ids.shape[0]]
             topo = (idx, idx >= 0)
-        (rr, rg, rb), count = trace(spheres, *rays, cfg.seed, ray_id,
+        (rr, rg, rb), count = trace(spheres, *rays, cfg.seed, ids,
                                     max_bounces=cfg.max_bounces,
                                     t_min=cfg.t_min, t_max=cfg.t_max,
                                     early_exit=cfg.early_exit, topology=topo,
                                     hit_index=hit_index, remat=remat,
-                                    soft_eps=cfg.soft_silhouette)
+                                    soft_eps=cfg.soft_silhouette,
+                                    active=ids < cfg.num_primary_rays)
         rad.append(torch.stack([rr, rg, rb], dim=-1))
         num_rays += count.sum(dtype=torch.int64)
-    image = torch.cat(rad).reshape(cfg.height, cfg.width, cfg.spp, 3).mean(dim=2)
-    return image, num_rays
+    return torch.cat(rad), num_rays
 
 
 def to_srgb_u8(image: torch.Tensor) -> torch.Tensor:

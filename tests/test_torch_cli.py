@@ -16,6 +16,7 @@ from rays1bench_tpu_torch.bench import cli, harness
 from rays1bench_tpu_torch.bench import profile as bench_profile
 from rays1bench_tpu_torch.core import config as tconfig
 from rays1bench_tpu_torch.kernels.pipeline import render_image_megakernel
+from rays1bench_tpu_torch.parallel.dryrun import rank_cases, run_ranks
 from rays1bench_tpu_torch.render.pipeline import render_image
 from rays1bench_tpu_torch.scene import builders, tga
 
@@ -44,9 +45,29 @@ def test_flags_and_defaults():
 
 @pytest.mark.parametrize("flags", [["--sharded", "2"],
                                    ["--profile", "trace_dir"], ["--report"]])
-def test_unported_flags_name_their_roadmap_item(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(flags)
+def test_unported_flags_name_their_roadmap_item(flags, tmp_path):
+    """--profile and --report raise. --sharded is ported: under two gloo
+    ranks (parallel/dryrun.run_ranks) --sharded 2 renders, through each
+    engine's sharded path, every rank the image and count of the engine
+    without a mesh."""
+    if flags[0] != "--sharded":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli.main(flags)
+        return
+    assert cli.parse_args(flags).sharded == 2
+    kw = dict(width=16, height=8, spp=2, max_bounces=4)
+    argvs = (flags, flags + ["--respawn"], flags + ["--engine", "plain"])
+    ranks = run_ranks(rank_cases, 2, str(tmp_path),
+                      [("cli", "small", None, kw, (2,), dict(argv=a))
+                       for a in argvs])
+    cfg = tconfig.RenderConfig(**kw)
+    scene = builders.create_small_scene(cfg.aspect, device="cpu")
+    camera = scene.camera.build("cpu")
+    for argv, *got in zip(argvs, *ranks):
+        want, n_want = cli.render_fn(cli.parse_args(argv[2:]), scene)(
+            scene.spheres, camera, cfg)
+        for img, n in got:
+            assert torch.equal(img, want) and int(n) == int(n_want), argv
 
 
 def test_main_needs_a_card():

@@ -615,3 +615,118 @@ def test_soft_fit_launches_each_kernel_twice_a_step(cuda):
     assert mega_backward.LAUNCHES == b + 6
     assert bool(torch.isfinite(torch.tensor(losses)).all())
     assert fitted.center_x.is_cuda
+
+
+@pytest.mark.parametrize("scene,w,h,spp,mb,span", [
+    ("small", 50, 30, 4, 6, None),       # ragged 8x4 warps
+    ("large", 64, 40, 3, 10, (1, 3)),    # 512 rows, a sample slice
+])
+def test_respawn_trips_equal_the_plain_twin(cuda, scene, w, h, spp, mb,
+                                            span):
+    """The kIters instantiation: the same radiance, counts and total as the
+    kernel without it, and trips equal to respawn_iters_reference of its
+    own per-pixel counts (each 8x4-pixel warp runs its busiest pixel's
+    segments)."""
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_bounces=mb)
+    s = builders.SCENES[scene](cfg.aspect, device=cuda)
+    packed = megakernel.pack_spheres(prepare_trimmed(s.spheres, s.n_real))
+    cam = megakernel.pack_camera(s.camera.build(cuda))
+    before = megakernel.RESPAWN_ITERS_LAUNCHES
+    rad, cnt, total, iters = megakernel.trace_respawn(packed, cam, cfg, span,
+                                                      debug_iters=True)
+    ref_rad, ref_cnt, ref_total = megakernel.trace_respawn(packed, cam, cfg,
+                                                           span)
+    torch.cuda.synchronize()
+    assert megakernel.RESPAWN_ITERS_LAUNCHES == before + 1
+    assert torch.equal(cnt, ref_cnt) and int(total) == int(ref_total)
+    assert all(torch.equal(a, b) for a, b in zip(rad, ref_rad))
+    assert int(iters) == int(megakernel.respawn_iters_reference(cnt, w))
+
+
+@pytest.mark.parametrize("scene,soft", [("small", 0.0), ("small", 0.005),
+                                        ("medium", 0.0), ("medium", 0.005)])
+def test_oneshot_trips(cuda, scene, soft):
+    """The kIters instantiations give the radiance, counts and total of the
+    kernel without them. Below 16 rows (small: a thread per ray) the trips
+    equal oneshot_iters_reference; from 16 rows up (medium: the flat loop)
+    they depend on the refill order and are held to its bound: 32 x trips
+    >= the segments traced (occupancy <= 1)."""
+    cfg, _, prep, rays, ray_id = grad_inputs(scene, 64, 32, 2, 8, 8, cuda,
+                                             soft)
+    packed = megakernel.pack_spheres(prep)
+    rad, cnt, total, iters = megakernel.trace_oneshot(packed, *rays, ray_id,
+                                                      cfg, debug_iters=True)
+    ref_rad, ref_cnt, ref_total = megakernel.trace_oneshot(packed, *rays,
+                                                           ray_id, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, ref_cnt) and int(total) == int(ref_total)
+    assert all(torch.equal(a, b) for a, b in zip(rad, ref_rad))
+    plain = int(megakernel.oneshot_iters_reference(cnt, packed.shape[1]))
+    if packed.shape[1] < megakernel.NEST_ROWS:
+        assert int(iters) == plain
+    else:
+        assert int(iters) >= plain and 32 * int(iters) >= int(total)
+
+
+def test_respawn_band_equals_rows_of_the_frame(cuda):
+    """Bands of 8-row blocks give the whole frame's rows bit for bit, and
+    their trips sum to the frame's (each band's warps are the frame's)."""
+    cfg = RenderConfig(width=50, height=30, spp=3, max_bounces=6)
+    s = builders.create_medium_scene(cfg.aspect, device=cuda)
+    packed = megakernel.pack_spheres(prepare_trimmed(s.spheres, s.n_real))
+    cam = megakernel.pack_camera(s.camera.build(cuda))
+    rad, cnt, total, iters = megakernel.trace_respawn(packed, cam, cfg,
+                                                      debug_iters=True)
+    trips = 0
+    for lo, hi in ((0, 8), (8, 24), (24, 30), (30, 30)):
+        b_rad, b_cnt, b_total, b_iters = megakernel.trace_respawn(
+            packed, cam, cfg, rows=(lo, hi), debug_iters=True)
+        sl = slice(lo * cfg.width, hi * cfg.width)
+        assert torch.equal(b_cnt, cnt[sl])
+        assert all(torch.equal(a, b[sl]) for a, b in zip(b_rad, rad))
+        assert int(b_total) == int(cnt[sl].sum())
+        trips += int(b_iters)
+    assert trips == int(iters)
+
+
+def test_sharded_render_in_a_group_of_one(cuda, tmp_path):
+    """A 1-rank NCCL group: each engine through render_image_pallas_sharded
+    (with telemetry where the engine has a counter) and the plain engine
+    through render_image_sharded give the single-device images bit for
+    bit."""
+    import torch.distributed as dist
+
+    from rays1bench_tpu_torch.parallel.mesh import make_mesh, make_mesh2d
+    from rays1bench_tpu_torch.parallel.shard import (
+        render_image_pallas_sharded, render_image_sharded)
+
+    cfg = RenderConfig(width=48, height=32, spp=4, max_bounces=8)
+    s = builders.create_medium_scene(cfg.aspect, device=cuda)
+    camera = s.camera.build(cuda)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, device=cuda)
+        for kw in (dict(respawn=False), dict(respawn=True),
+                   dict(respawn=False, wavefront=(2, 3, 6))):
+            want, n_want = render_image_megakernel(s.spheres, camera, cfg,
+                                                   s.n_real, **kw)
+            telem = "wavefront" not in kw
+            out = render_image_pallas_sharded(s.spheres, camera, cfg, mesh,
+                                              n_real=s.n_real,
+                                              telemetry=telem, **kw)
+            assert torch.equal(out[0], want) and int(out[1]) == int(n_want)
+            if telem:
+                assert int(out[2]["device_rays"].sum()) == int(n_want)
+                assert int(out[2]["device_iters"].sum()) > 0
+        img, n = render_image_pallas_sharded(
+            s.spheres, camera, cfg, make_mesh2d(1, 1, device=cuda),
+            axis_name="tiles", sample_axis="samples", n_real=s.n_real)
+        want, n_want = render_image_megakernel(s.spheres, camera, cfg,
+                                               s.n_real, respawn=False)
+        assert torch.equal(img, want) and int(n) == int(n_want)
+        img, n = render_image_sharded(s.spheres, camera, cfg, mesh)
+        want, n_want = render_image(s.spheres, camera, cfg)
+        assert torch.equal(img, want) and int(n) == int(n_want)
+    finally:
+        dist.destroy_process_group()

@@ -308,12 +308,19 @@ def test_entry_points_run_on_the_card_unless_asked():
     assert fitted.albedo_x.device.type == "cpu" and len(losses) == 1
 
 
-def test_unported_modes_raise_with_their_roadmap_item():
-    """A mesh and fit_camera raise. engine="pipeline" is ported: it renders
-    the plain pipeline with the index sweep. A scene the fused backward
-    cannot take (51 bounces) now goes to the pipeline under auto; an
-    explicit "mega" still raises there. Soft silhouettes are ported: the
-    config takes them and engine="mega" renders them."""
+def test_unported_modes_raise_with_their_roadmap_item(tmp_path):
+    """fit_camera raises. A mesh is ported (parallel/, here a group of one
+    gloo rank): fit_scene(mesh=...) fits, and each engine's render on it is
+    the one without a mesh (tests/test_torch_shard_grad.py holds four
+    ranks to one). engine="pipeline" is ported: it renders the plain
+    pipeline with the index sweep. A scene the fused backward cannot take
+    (51 bounces) now goes to the pipeline under auto; an explicit "mega"
+    still raises there. Soft silhouettes are ported: the config takes them
+    and engine="mega" renders them."""
+    import torch.distributed as dist
+
+    from rays1bench_tpu_torch.parallel.mesh import make_mesh
+
     cfg = RenderConfig(width=8, height=4, spp=1, max_bounces=2)
     scene = tbuilders.create_small_scene(2.0, pad_multiple=8, device="cpu")
     cam = scene.camera.build("cpu")
@@ -322,8 +329,25 @@ def test_unported_modes_raise_with_their_roadmap_item():
                                        pallas_intersect=True))
     img = inverse.render_for_loss(scene.spheres, cam, cfg, engine="pipeline")
     assert torch.equal(img, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inverse.render_for_loss(scene.spheres, cam, cfg, mesh=object())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, device="cpu")
+        for engine in ("pipeline", "mega"):
+            assert torch.equal(
+                inverse.render_for_loss(scene.spheres, cam, cfg, mesh,
+                                        engine),
+                inverse.render_for_loss(scene.spheres, cam, cfg,
+                                        engine=engine)), engine
+        inv = inverse.InverseConfig(steps=2, optimize=ALBEDOS)
+        target = torch.zeros((cfg.height, cfg.width, 3))
+        fitted, losses = inverse.fit_scene(scene.spheres, cam, target, cfg,
+                                           inv, mesh=mesh, device="cpu")
+        _, want_losses = inverse.fit_scene(scene.spheres, cam, target, cfg,
+                                           inv, device="cpu")
+        assert losses == want_losses and losses[1] < losses[0]
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         inverse.fit_camera(scene.spheres, scene.camera, None, cfg)
     deep = cfg.replace(max_bounces=51)

@@ -561,3 +561,15 @@ def test_backward_lane_on_a_ray_trapped_between_two_spheres(host_lib):
         dataclasses.replace(prep, **exact), *(r.double() for r in rays), ids,
         *(c.double() for c in cts), topo, cfg)
     assert abs(float(ref64[fuzz, 2]) - term) > 2e-2 * abs(term)
+
+
+def test_variants_patch_text_the_kernels_hold():
+    """bench.variants builds each variant by replacing lines of the tree's
+    (or a parent's) kernel sources: every replacement of a tree variant
+    must find its text in kernels/csrc, or the variant would not build."""
+    from rays1bench_tpu_torch.bench import variants
+    for kernel, entries in variants.VARIANTS.items():
+        for name, src, subs in entries:
+            for fname, old, _ in subs if src == "tree" else ():
+                text = (build.CSRC / fname).read_text()
+                assert old in text, (kernel, name, fname)

@@ -168,8 +168,7 @@ def test_remat_is_exact_and_the_backward_never_sweeps(monkeypatch):
 def test_auto_routes_to_the_pipeline_where_the_fused_backward_cannot():
     cfg = RenderConfig(width=8, height=4, spp=1, max_bounces=2)
     small = tbuilders.create_small_scene(2.0, pad_multiple=8, device="cpu")
-    pick = lambda soa, c, engine="auto": inverse._pick_engine(soa, c, None,
-                                                              engine)
+    pick = lambda soa, c, engine="auto": inverse._pick_engine(soa, c, engine)
     assert pick(small.spheres, cfg) == "mega"
     assert pick(small.spheres, cfg.replace(max_bounces=51)) == "pipeline"
     assert pick(small.spheres, cfg, "pipeline") == "pipeline"
