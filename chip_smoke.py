@@ -150,14 +150,40 @@
    respawn=True, equal to step 4's frame; one fit_scene(mesh=...) step on
    step 8's recipe through "mega" and "pipeline", each loss within
    GRAD_TOL of the unsharded step's.
+21. The camera fit, [camfit]: grad.inverse.fit_camera on "mega", small scene
+   at 1280x720 @ 4 spp @ 10 b, seed 3, the JAX recipe (tests/test_grad.py:
+   514-549): lookfrom moved by (+0.06, -0.05, +0.04), lr 5e-3, and vfov
+   +2 degrees, lr 5e-2, toward the true camera's render. Hard, the
+   fixed-topology gradient has no silhouette terms and at this size points
+   away from the true camera (ROADMAP.md §3, open fault 1): at each moved
+   start the leaves' gradient through kernel B within GRAD_TOL of the
+   replay path's (render_image_mega(fused=False)), printed beside central
+   differences of the loss; kernels A and B against their plain versions
+   on the moved lookfrom's frame (as in 9); twelve camera steps, both
+   kernels launched once each, and the warm step's ms. With
+   soft_silhouette SOFT the recipe's two 120-step fits must meet the JAX
+   bars (last loss under 5% / 20% of the first, error under 0.015 / 0.6
+   degrees), both kernels launching every step; the camera gradient at
+   the fitted lookfrom within GRAD_TOL of the replay's; the warm step.
+22. The tooling, [tooling]: bench.cli --scenes small --profile --report
+   --save once, its Chrome trace holding the one-shot kernel's CUDA events
+   and its report table the record it wrote; the native runtime built, its
+   TGA equal to scene/tga.write_rgb24's bytes and its tonemap to the
+   card's to_srgb_u8; device_memory_stats' peak; the one-rank point of
+   bench.scaling with telemetry.
 Then prints one JSON line of per-kernel results and, last, the device line.
 Each kernel's launches there are those of the main paths that run it: the
 respawn kernel's the headline's and the sharded path's; the one-shot
-kernel's both fits, the one-shot engine's frame, the CLI's and the sharded
-path's; the index kernel's the pipeline fit, the giant step and the
-sharded pipeline step; the phase kernel's the wavefront frame and the
-sharded one; the kIters instantiations' (respawn_iters, oneshot_iters) the
-sharded path's telemetry. The kIters entries' times and bounds: the
+kernel's both fits, the one-shot engine's frame, the CLI's, the sharded
+path's and the tooling's CLI and scaling point; the backward kernel's both
+fits and the sharded path's; the soft modes' the soft geometry fit's and
+the soft camera fits' (their times and bounds are on the same shape); the
+hard camera steps' have entries of their own (oneshot_camera,
+mega_backward_camera), with times and bounds on the camera fit's frame;
+the index kernel's the pipeline fit, the giant step and the sharded
+pipeline step; the phase kernel's the wavefront frame and the sharded
+one; the kIters instantiations' (respawn_iters, oneshot_iters) the
+sharded path's telemetry and the scaling point's. The kIters entries' times and bounds: the
 respawn kernel's at compare's first case, as the respawn entry's; the
 one-shot kernel's on the CLI frame. Times and
 bounds: the gradient kernels' on the medium frame, the index kernel's on
@@ -184,6 +210,7 @@ backward costs SOFT_BACKWARD_OPS per live bounce.
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -199,7 +226,8 @@ from rays1bench_tpu_torch.bench.grad import (ALBEDOS, GEOMETRY, cuda_ms,
                                              geometry_config, kernel_ms,
                                              launch_ms, moved_geometry,
                                              perturb_albedos, phase_ms)
-from rays1bench_tpu_torch.bench import cli
+from rays1bench_tpu_torch.bench import camfit as camfit_bench
+from rays1bench_tpu_torch.bench import cli, report, scaling
 from rays1bench_tpu_torch.bench.gradcase import (random_cts, save_case,
                                                  soa_grads, summed_scales)
 from rays1bench_tpu_torch.bench.harness import benchmark_sustained
@@ -219,9 +247,11 @@ from rays1bench_tpu_torch.parallel.mesh import make_mesh, make_mesh2d
 from rays1bench_tpu_torch.parallel.shard import render_image_pallas_sharded
 from rays1bench_tpu_torch.render.pipeline import (primary_rays, render_image,
                                                   to_srgb_u8)
+from rays1bench_tpu_torch.runtime import native
 from rays1bench_tpu_torch.scene import builders, tga
 from rays1bench_tpu_torch.scene.soa_spheres import COLUMNS
 from rays1bench_tpu_torch.scene.spheres import prepare
+from rays1bench_tpu_torch.utils import profiling
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden", "latest_full_large.tga")
@@ -326,6 +356,14 @@ INDEX_PLAIN_CHUNK = 65536      # (65,536 x 4,096) float temporaries: ~1 GB each
 # The sharded path's local checks: a 4-way tile mesh and a 2x2 (tiles,
 # samples) mesh.
 SHARD_SHAPES = ((4, 1), (2, 2))
+# The camera fit at full width: the JAX recipe (tests/test_grad.py:514-549,
+# bench.camfit.CASES) at 1280x720 @ 4 spp @ 10 b.
+CAMFIT = dict(width=1280, height=720, spp=4, max_bounces=10, seed=3,
+              early_exit=False)
+CAMFIT_STEPS = 120
+# The __global__ function of each kernel, as a profiler trace names it.
+TRACE_FUNCTIONS = dict(bench_grad.KERNELS, respawn="respawn_kernel",
+                       phase="phase_kernel")
 
 CASES = [  # (name, scene, width, height, spp, max_bounces)
     ("large 160x90 @ 4 spp @ 10 b", "large", 160, 90, 4, 10),
@@ -1973,6 +2011,232 @@ def pipeline_checks():
     return medium + giant, max(m_err, g_err)
 
 
+def camfit_fits(scene, cfg):
+    """Each recipe fit of bench.camfit (CASES) on "mega", CAMFIT_STEPS
+    steps, in cfg's mode, held to the JAX test's bars. Returns ((topology,
+    backward) launches of the fits, the fitted lookfrom's spec, the true
+    camera's render)."""
+    soft = cfg.soft_silhouette
+    with torch.no_grad():
+        target = render_for_loss(scene.spheres, scene.camera.build("cuda"),
+                                 cfg, engine="mega")
+    label = (f"small ({scene.spheres.count} rows) {cfg.width}x{cfg.height} "
+             f"@ {cfg.spp} spp @ {cfg.max_bounces} b, seed {cfg.seed}, "
+             f"soft {soft}")
+    launches, missed, fitted_spec = [0, 0], [], scene.camera
+    for leaf in camfit_bench.CASES:
+        reset_launches()
+        r = camfit_bench.fit(scene, target, cfg, leaf, "mega", CAMFIT_STEPS,
+                             "cuda")
+        got = (megakernel.ONESHOT_LAUNCHES, mega_backward.LAUNCHES)
+        launches = [a + b for a, b in zip(launches, got)]
+        losses = r["losses"]
+        print(f"[camfit] {label}: {leaf} moved by {r['move']}, lr {r['lr']}:"
+              f" {CAMFIT_STEPS} Adam steps in {r['seconds']:.2f} s wall "
+              f"({r['seconds'] * 1e3 / CAMFIT_STEPS:.2f} ms a step, "
+              f"first-call set-up included); launches topology {got[0]} "
+              f"backward {got[1]}; loss {losses[0]:.6e} -> {losses[-1]:.6e} "
+              f"(ratio {r['ratio']:.4f}, bar {r['bars'][0]}); max abs {leaf} "
+              f"error {r['err0']:.4f} -> {r['err']:.4f} (bar {r['bars'][1]}):"
+              f" bars {'met' if r['met'] else 'MISSED'}; losses "
+              + ", ".join(f"{i}: {losses[i]:.4e}"
+                          for i in range(0, CAMFIT_STEPS, 15)), flush=True)
+        if min(got) < CAMFIT_STEPS:
+            raise AssertionError(f"[camfit] {leaf}: the fit did not launch "
+                                 f"both kernels every step: {got}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"[camfit] {leaf}: non-finite loss")
+        if not r["met"]:
+            missed.append(f"{leaf}: loss ratio {r['ratio']:.4f} (bar "
+                          f"{r['bars'][0]}), error {r['err']:.4f} (bar "
+                          f"{r['bars'][1]})")
+        if leaf == "lookfrom":
+            fitted_spec = dataclasses.replace(scene.camera, lookfrom=tuple(
+                float(x) for x in r["fitted"][leaf].cpu()))
+    if missed:
+        raise AssertionError(f"[camfit] soft {soft}: the JAX recipe's bars "
+                             f"are missed at full width: " + "; ".join(missed))
+    return launches, fitted_spec, target
+
+
+def camera_gradient_check(mode, scene, spec, target, cfg):
+    """The camera leaves' gradient through kernel B within GRAD_TOL of the
+    replay path's (render_image_mega(fused=False)) at `spec`; returns
+    the fused (loss, lookfrom gradient, vfov gradient)."""
+    fused = camfit_bench.camera_grad(scene.spheres, spec, target, cfg)
+    replay = camfit_bench.camera_grad(scene.spheres, spec, target, cfg,
+                                      fused=False)
+    rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(fused[1:], replay[1:]))
+    print(f"[camfit] {mode}: camera gradient, fused B against the replay: "
+          f"lookfrom {[f'{g:.6e}' for g in fused[1].tolist()]} / "
+          f"{[f'{g:.6e}' for g in replay[1].tolist()]}, vfov "
+          f"{float(fused[2]):.6e} / {float(replay[2]):.6e}; worst relative "
+          f"gap {rel:.2e}", flush=True)
+    if not rel <= GRAD_TOL:
+        raise AssertionError(f"[camfit] {mode}: the fused camera gradient "
+                             f"is {rel} from the replay's")
+    return fused
+
+
+def camfit():
+    """[camfit] The camera fit at full width on the "mega" engine, the JAX
+    recipe (bench.camfit.CASES) through grad.inverse.fit_camera.
+
+    Hard: the fixed-topology gradient has no silhouette terms, and at full
+    width it points away from the true camera (ROADMAP.md §3, open fault
+    1; the JAX package's does too, PERF.md §6), so the recipe's 120-step
+    fits are not run here (bench.camfit runs them). At each moved start
+    (lookfrom, vfov) the leaves' gradient through kernel B within GRAD_TOL
+    of the replay's, printed beside central differences of the loss; on
+    the moved lookfrom's frame kernels A and B against their plain versions
+    (full_width); the hard camera step's path: camfit_bench.step_ms, two
+    warm steps and ten timed, both kernels launched once a step.
+
+    Soft (SOFT, the soft geometry fit's width): both recipe fits must meet
+    the JAX bars; the camera gradient at the fitted lookfrom within
+    GRAD_TOL of the replay's; the warm step.
+
+    Returns ((A, B) launches of the hard camera step's path, of the soft
+    fits, A's and B's full_width results on the camera frame)."""
+    cfg = RenderConfig(**CAMFIT)
+    soft_cfg = cfg.replace(soft_silhouette=SOFT)
+    scene = builders.create_small_scene(cfg.aspect, pad_multiple=8,
+                                        device="cuda")
+    with torch.no_grad():
+        target = render_for_loss(scene.spheres, scene.camera.build("cuda"),
+                                 cfg, engine="mega")
+    starts = {leaf: camfit_bench.moved(scene.camera, leaf, case[1])
+              for leaf, case in camfit_bench.CASES.items()}
+    for leaf, start in starts.items():
+        _, g_lf, g_vf = camera_gradient_check(f"hard, moved {leaf}", scene,
+                                              start, target, cfg)
+        grad = g_vf.reshape(1) if leaf == "vfov" else g_lf
+        numeric = camfit_bench.central_differences(
+            scene.spheres, start, target, cfg, "mega", leaf)
+        print(f"[camfit] hard: the loss's gradient in {leaf} at the moved "
+              f"start, fixed-topology {[f'{g:.4e}' for g in grad.tolist()]},"
+              f" central differences (eps 1e-3) "
+              f"{[f'{g:.4e}' for g in numeric]}", flush=True)
+    a_full, b_full = full_width("small", scene.spheres,
+                                starts["lookfrom"].build("cuda"), cfg,
+                                scene.n_real)
+    reset_launches()
+    ms = camfit_bench.step_ms(scene, starts["lookfrom"], target, cfg, "mega",
+                              "cuda")
+    hard = (megakernel.ONESHOT_LAUNCHES, mega_backward.LAUNCHES)
+    print(f"[camfit] hard: warm camera step {ms:.2f} ms (host clock, the "
+          f"loss read each step) on {card_line()}; launches topology "
+          f"{hard[0]} backward {hard[1]}", flush=True)
+    if hard != (12, 12):
+        raise AssertionError(f"[camfit] hard: 12 camera steps launched "
+                             f"{hard}")
+
+    soft, soft_spec, soft_target = camfit_fits(scene, soft_cfg)
+    camera_gradient_check(f"soft {SOFT}, fitted lookfrom", scene, soft_spec,
+                          soft_target, soft_cfg)
+    ms = camfit_bench.step_ms(scene, soft_spec, soft_target, soft_cfg,
+                              "mega", "cuda")
+    print(f"[camfit] soft {SOFT}: warm camera step {ms:.2f} ms (host clock, "
+          f"the loss read each step) on {card_line()}", flush=True)
+    return hard, soft, a_full, b_full
+
+
+def tooling():
+    """[tooling] The tooling on the card: bench.cli --scenes small --profile
+    --report --save once, its Chrome trace holding the one-shot kernel's
+    CUDA events, its report table the record just written, the native
+    runtime built and its TGA the bytes of scene/tga.write_rgb24 and its
+    tonemap the device's to_srgb_u8; device_memory_stats' peak; the
+    one-rank point of bench.scaling (telemetry on). Returns the one-shot
+    kernel's launches (the CLI's and the scaling point's) and its kIters
+    instantiation's (the scaling point's telemetry)."""
+    out_dir = tempfile.mkdtemp(prefix="rays1bench_tooling_")
+    logdir = os.path.join(out_dir, "trace")
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--scenes", "small", "--profile", logdir, "--report",
+                  "--save", "--out-dir", out_dir])
+    text = buf.getvalue()
+    launches = megakernel.ONESHOT_LAUNCHES
+    for line in text.splitlines():
+        print(f"[tooling] cli: {line}", flush=True)
+    if launches < 2:
+        raise AssertionError("[tooling] the CLI did not run the one-shot "
+                             "kernel")
+    traces = profiling.trace_files(logdir)
+    if len(traces) != 1:
+        raise AssertionError(f"[tooling] traces in {logdir}: {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    ran = sorted(k for k, fn in TRACE_FUNCTIONS.items()
+                 if any(bench_grad.is_kernel(n, fn) for n in names))
+    print(f"[tooling] {os.path.basename(traces[0])}: {len(events)} events, "
+          f"{len(names)} CUDA kernel names; the port's kernels in it: {ran}",
+          flush=True)
+    if "oneshot" not in ran:
+        raise AssertionError("[tooling] the trace holds no one-shot kernel "
+                             "event")
+    with open(os.path.join(out_dir, "out_small.txt")) as f:
+        version, secs, rays, mrays = parse_record(f.read())
+    rec, = report.collect([out_dir], "small")
+    row = (f"| **{version}** | {secs:.3f} s | {rays:,} | **{mrays:.3f}** | "
+           f"1.00 |")
+    if (rec.version, rec.seconds, rec.rays, rec.mrays) != \
+            (version, secs, rays, mrays) or row not in text:
+        raise AssertionError(f"[tooling] the report does not hold the "
+                             f"record {rec}")
+    print(f"[tooling] the report's table holds out_small.txt: {row}",
+          flush=True)
+
+    if not native.available() or "native runtime: built" not in text:
+        raise AssertionError(f"[tooling] native runtime: {native.status()}")
+    img = tga.read_rgb24(os.path.join(out_dir, "out_small.tga"))
+    plain = os.path.join(out_dir, "plain.tga")
+    tga.write_rgb24(plain, img)
+    with open(os.path.join(out_dir, "out_small.tga"), "rb") as a, \
+            open(plain, "rb") as b:
+        same = a.read() == b.read()
+    cfg = get_config("quick")
+    scene = builders.create_small_scene(cfg.aspect, device="cuda")
+    frame, _ = render_image_megakernel(scene.spheres,
+                                       scene.camera.build("cuda"), cfg,
+                                       n_real=scene.n_real)
+    tone = np.array_equal(native.tonemap_u8(frame.cpu().numpy()),
+                          to_srgb_u8(frame).cpu().numpy())
+    print(f"[tooling] native runtime {native.status()}: out_small.tga "
+          f"{img.shape} equal to scene/tga.write_rgb24's bytes: {same}; "
+          f"tonemap_u8 of a quick frame equal to to_srgb_u8 on the card: "
+          f"{tone}", flush=True)
+    if not (same and tone):
+        raise AssertionError("[tooling] the native runtime differs from its "
+                             "plain twins")
+    stats = profiling.device_memory_stats("cuda")
+    peak = stats["allocated_bytes.all.peak"]
+    print(f"[tooling] device_memory_stats: peak {peak / 2**30:.2f} GiB "
+          f"allocated, {stats['allocated_bytes.all.current'] / 2**30:.2f} "
+          f"GiB now", flush=True)
+    if not peak > 0:
+        raise AssertionError("[tooling] no peak in device_memory_stats")
+
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        points, telems = scaling.main(["--scene", "small", "--devices", "1",
+                                       "--telemetry"])
+    launches += megakernel.ONESHOT_LAUNCHES
+    iters_launches = megakernel.ONESHOT_ITERS_LAUNCHES
+    for line in buf.getvalue().splitlines():
+        print(f"[tooling] scaling: {line}", flush=True)
+    if not (len(points) == 1 and points[0].n_devices == 1
+            and points[0].num_rays == telems[0]["device_rays"][0] > 0
+            and iters_launches):
+        raise AssertionError(f"[tooling] scaling point {points} {telems}")
+    return launches, iters_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2043,6 +2307,14 @@ def main():
           f"kIters cost (off, on) ms: respawn headline "
           f"({head_iters[0]:.3f}, {head_iters[1]:.3f}), one-shot CLI frame "
           f"({one_cost[0]:.3f}, {one_cost[1]:.3f})", flush=True)
+    t0 = time.perf_counter()
+    cam_hard, cam_soft, a_cam, b_cam = camfit()
+    print(f"[camfit] every check in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    tool_launches, tool_iters = tooling()
+    print(f"[tooling] every check in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(f"[time] every phase in {time.perf_counter() - started:.1f} s",
           flush=True)
 
@@ -2055,17 +2327,24 @@ def main():
         kernel_entry("oneshot", "oneshot.cu",
                      "rays1bench_tpu/kernels/megakernel.py:487",
                      grad_launches[0] + engine_launches[0] + cli_launches
-                     + shard_launches["oneshot"], a_err, *a_full[1:]),
+                     + shard_launches["oneshot"] + tool_launches, a_err,
+                     *a_full[1:]),
         kernel_entry("mega_backward", "mega_backward.cu",
                      "rays1bench_tpu/kernels/mega_backward.py:227",
                      grad_launches[1] + shard_launches["mega_backward"],
                      b_err, *b_full[1:]),
+        kernel_entry("oneshot_camera", "oneshot.cu",
+                     "rays1bench_tpu/kernels/megakernel.py:487",
+                     cam_hard[0], *a_cam),
+        kernel_entry("mega_backward_camera", "mega_backward.cu",
+                     "rays1bench_tpu/kernels/mega_backward.py:227",
+                     cam_hard[1], *b_cam),
         kernel_entry("oneshot_soft", "oneshot.cu",
                      "rays1bench_tpu/kernels/megakernel.py:487",
-                     soft_launches[0], *a_soft),
+                     soft_launches[0] + cam_soft[0], *a_soft),
         kernel_entry("mega_backward_soft", "mega_backward.cu",
                      "rays1bench_tpu/kernels/mega_backward.py:227",
-                     soft_launches[1], *b_soft),
+                     soft_launches[1] + cam_soft[1], *b_soft),
         kernel_entry("intersect_index", "intersect_index.cu",
                      "rays1bench_tpu/kernels/intersect_pallas.py:34",
                      index_launches + shard_launches["intersect_index"],
@@ -2078,7 +2357,8 @@ def main():
                      shard_launches["respawn_iters"], *r_iters),
         kernel_entry("oneshot_iters", "oneshot.cu",
                      "rays1bench_tpu/kernels/megakernel.py:487",
-                     shard_launches["oneshot_iters"], *one_iters),
+                     shard_launches["oneshot_iters"] + tool_iters,
+                     *one_iters),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

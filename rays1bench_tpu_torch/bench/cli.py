@@ -4,7 +4,8 @@ reference: bench.py:10-38, binary flags -w/-n at rayweek1.cpp:943-958).
     python -m rays1bench_tpu_torch.bench.cli [--scenes small,medium,large]
         [--quick] [--save] [--num N] [--spp S] [--max-bounces B]
         [--engine kernel|plain] [--respawn] [--sustained FRAMES]
-        [--sharded N] [--out-dir DIR] [--label LABEL]
+        [--sharded N] [--out-dir DIR] [--label LABEL] [--report]
+        [--profile LOGDIR]
     torchrun --nproc-per-node N -m rays1bench_tpu_torch.bench.cli \
         --sharded N ...
 
@@ -15,8 +16,13 @@ through the one-shot kernel engine, or the respawn engine with --respawn;
 --engine plain (the JAX CLI's "xla") through the plain render.pipeline.
 render_image on the card. For each scene it writes out_<scene>.txt in the
 reference's pipe format (bench.harness.log_results), out_<scene>.tga with
---save, and prints the JAX CLI's per-scene block; the card's name and power
-limit come first.
+--save (written by the native runtime, runtime/native.py), and prints the
+JAX CLI's per-scene block; the card's name and power limit come first, then
+the native runtime's status (built, or the numpy twins instead, and why).
+--report prints each scene's markdown table of the records in --out-dir
+afterwards (bench/report.py); --profile LOGDIR traces the benchmark runs
+with torch.profiler into a Chrome trace in LOGDIR, the card's kernels
+included (utils/profiling.py).
 
 --sharded N renders over a mesh of N ranks, one card each
 (parallel/shard.py): --engine kernel through render_image_pallas_sharded
@@ -26,14 +32,13 @@ torchrun started (its environment names the group); for N = 1 without
 one, the CLI makes a group of one. Every rank renders; rank 0 alone prints
 and writes.
 
-Not ported yet, raising NotImplementedError with its ROADMAP item:
---profile and --report (the tooling). Needs a CUDA device; raises without
-one.
+Needs a CUDA device; raises without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 
@@ -62,16 +67,14 @@ def parse_args(argv=None):
                     help="version label written to out_<scene>.txt "
                          "(default: the harness VERSION_NAME)")
     ap.add_argument("--report", action="store_true",
-                    help="not ported: the tooling")
+                    help="print the markdown results table afterwards")
     ap.add_argument("--sustained", type=int, default=0, metavar="FRAMES",
                     help="time FRAMES frames queued back to back "
                          "(bench.harness.benchmark_sustained)")
     ap.add_argument("--profile", default="", metavar="LOGDIR",
-                    help="not ported: the tooling")
+                    help="trace the benchmark runs with torch.profiler into "
+                         "LOGDIR (Chrome trace; utils/profiling.py)")
     args = ap.parse_args(argv)
-    if args.profile or args.report:
-        raise NotImplementedError("--profile and --report (the tooling) are "
-                                  "not ported: ROADMAP.md, queue 1, item 8")
     if not 1 <= args.num <= 31:  # the reference clamps -n to 1..31
         ap.error("--num must be in 1..31")
     from rays1bench_tpu_torch.scene import builders
@@ -153,7 +156,10 @@ def main(argv=None):
     args = parse_args(argv)
     import torch
 
+    from rays1bench_tpu_torch.bench import report
     from rays1bench_tpu_torch.bench.profile import smi
+    from rays1bench_tpu_torch.runtime import native
+    from rays1bench_tpu_torch.utils import profiling
 
     if not torch.cuda.is_available():
         raise SystemExit("rays1bench_tpu_torch.bench.cli needs a CUDA device")
@@ -164,12 +170,25 @@ def main(argv=None):
     try:
         if lead:
             print(f"card: {smi('name', 'power.limit')[0]}", flush=True)
+            print(f"native runtime: {native.status()}", flush=True)
             os.makedirs(args.out_dir, exist_ok=True)
-        for name in args.scene_names:
-            run_scene(args, cfg, name, mesh, lead)
+        with (profiling.trace(args.profile) if args.profile
+              else contextlib.nullcontext()):
+            for name in args.scene_names:
+                run_scene(args, cfg, name, mesh, lead)
     finally:
         if started:
             torch.distributed.destroy_process_group()
+    if not lead:
+        return
+    if args.profile:
+        print(f"profile trace written to {args.profile}", flush=True)
+    if args.report:
+        for name in args.scene_names:
+            recs = report.collect([args.out_dir], name)
+            if recs:
+                print(f"### {name}\n{report.markdown_table(recs)}\n",
+                      flush=True)
 
 
 def run_scene(args, cfg, name, mesh, lead):
@@ -179,7 +198,8 @@ def run_scene(args, cfg, name, mesh, lead):
                                                     benchmark_sustained,
                                                     log_results)
     from rays1bench_tpu_torch.render.pipeline import to_srgb_u8
-    from rays1bench_tpu_torch.scene import builders, tga
+    from rays1bench_tpu_torch.runtime import native
+    from rays1bench_tpu_torch.scene import builders
 
     scene = builders.SCENES[name](cfg.aspect, device="cuda")
     render = render_fn(args, scene, mesh)
@@ -193,8 +213,9 @@ def run_scene(args, cfg, name, mesh, lead):
                         scene.camera.build(scene.spheres.center_x.device),
                         cfg)
         if lead:
-            tga.write_rgb24(os.path.join(args.out_dir, f"out_{name}.tga"),
-                            to_srgb_u8(img).cpu().numpy())
+            native.tga_write_rgb24(
+                os.path.join(args.out_dir, f"out_{name}.tga"),
+                to_srgb_u8(img).cpu().numpy())
     if not lead:
         return
     kw = {"version": args.label} if args.label else {}

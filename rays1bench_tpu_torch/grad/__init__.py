@@ -1,2 +1,3 @@
 """Inverse rendering on the port: the megakernel-forward gradient (mega.py),
-the Adam fit (inverse.py) and its checkpoints (checkpoint.py)."""
+the Adam fits of the scene and the camera (inverse.py), their checkpoints
+(checkpoint.py) and the finite-difference check (fd.py)."""

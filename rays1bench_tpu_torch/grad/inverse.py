@@ -24,8 +24,8 @@ its replica of the parameters), "mega" takes the sharded fused path
 render (parallel/shard.render_image_sharded); each sums the gradient over
 the ranks with one all_reduce, so the replicas stay equal.
 
-Not ported yet, raising NotImplementedError with its ROADMAP item:
-fit_camera (the differentiable camera constructor).
+fit_camera fits the camera's lookfrom and/or vfov instead of the scene,
+through the differentiable render/camera.build_camera.
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ from rays1bench_tpu_torch.grad.mega import (render_image_mega,
                                             render_image_mega_sharded)
 from rays1bench_tpu_torch.kernels.mega_backward import supported
 from rays1bench_tpu_torch.parallel.shard import render_image_sharded
-from rays1bench_tpu_torch.render.camera import Camera
+from rays1bench_tpu_torch.render.camera import (Camera, CameraSpec,
+                                                build_camera)
 from rays1bench_tpu_torch.render.pipeline import render_image
 from rays1bench_tpu_torch.scene.soa_spheres import SphereSOA
 
@@ -251,8 +252,55 @@ def fit_scene(spheres0: SphereSOA, camera: Camera, target: torch.Tensor,
     return with_params(spheres0, fitted), losses
 
 
-def fit_camera(*args, **kwargs):
-    """Adam-fit camera parameters: not ported yet."""
-    raise NotImplementedError(
-        "fit_camera (and the differentiable render/camera.build_camera) is "
-        "not ported: ROADMAP.md, queue 1, item 3")
+def fit_camera(spheres: SphereSOA, spec: CameraSpec, target: torch.Tensor,
+               cfg: RenderConfig, learning_rate: float = 5e-3,
+               steps: int = 100, optimize: Tuple[str, ...] = ("lookfrom",),
+               engine: str = "auto", verbose: bool = False, mesh=None,
+               device="cuda"):
+    """Adam-fit camera parameters, lookfrom and/or vfov, to a target image
+    on `device` (rays1bench_tpu/grad/inverse.py:280-326). The scene is
+    fixed; `spec` gives the starting guess and the parameters that stay
+    (lookat, vup, aperture, focus_dist, aspect). Each step rebuilds the
+    camera from the leaves with render/camera.build_camera, renders through
+    render_for_loss (with a mesh, its sharded render), takes the plain MSE
+    (not the U-statistic, as in the JAX package) and one torch.optim.Adam step
+    with optax's defaults. Gradients flow image -> rays -> basis -> leaves:
+    on "mega" kernel B's ray cotangents carry them through raygen's
+    autograd.
+
+    Deviation from the JAX package: `optimize` defaults to ("lookfrom",),
+    not ("lookfrom", "vfov"). Fitted together, the two share a near-null
+    dolly-zoom direction (moving lookfrom along the view axis trades
+    against vfov at almost the same image), so the joint fit from one view
+    is ill-posed; passing both is still accepted.
+
+    Returns ({name: fitted float32 tensor}, list of per-step losses)."""
+    unknown = set(optimize) - {"lookfrom", "vfov"}
+    if unknown:
+        raise ValueError(f"fit_camera fits lookfrom and vfov, not "
+                         f"{sorted(unknown)}")
+    device = resolve(device)
+    spheres = to_device(spheres, device)
+    target = target.to(device)
+    start = {"lookfrom": spec.lookfrom, "vfov": spec.vfov}
+    params = {k: torch.tensor(start[k], dtype=torch.float32, device=device,
+                              requires_grad=True) for k in optimize}
+    fixed = {k: torch.tensor(v, dtype=torch.float32, device=device)
+             for k, v in start.items() if k not in params}
+    optimizer = torch.optim.Adam(list(params.values()), lr=learning_rate,
+                                 eps=1e-8)
+    losses = []
+    for i in range(steps):
+        optimizer.zero_grad(set_to_none=True)
+        full = dict(fixed, **params)
+        camera = build_camera(full["lookfrom"], spec.lookat, spec.vup,
+                              full["vfov"], spec.aspect, spec.aperture,
+                              spec.focus_dist, device)
+        img = render_for_loss(spheres, camera, cfg, mesh, engine)
+        loss = torch.mean((img - target) ** 2)
+        loss.backward()
+        optimizer.step()
+        losses.append(float(loss.detach()))
+        if verbose and (i % 10 == 0 or i == steps - 1):
+            print(f"camera step {i:4d}  loss {losses[-1]:.6g}")
+    return {k: v.detach() for k, v in params.items()}, losses

@@ -137,14 +137,16 @@ class _FusedSharded(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, mesh, index, ray_id, *tensors):
-        from rays1bench_tpu_torch.parallel.shard import all_gather
+        from rays1bench_tpu_torch.parallel.shard import (_mesh_group,
+                                                         all_gather)
         prep = PreparedSpheres(*tensors[:len(_PREP_FIELDS)])
         camera = Camera(*tensors[len(_PREP_FIELDS):])
         ((rr, rg, rb), _, total, topo), rays = shard_forward(prep, camera,
                                                              cfg, ray_id)
         parts = all_gather(torch.stack([rr, rg, rb]), mesh)
         total = total.clone()
-        torch.distributed.all_reduce(total)
+        ctx.group = _mesh_group(mesh)
+        torch.distributed.all_reduce(total, group=ctx.group)
         ctx.cfg, ctx.index = cfg, index
         ctx.save_for_backward(ray_id, topo, *rays, *tensors)
         ctx.mark_non_differentiable(total)
@@ -178,7 +180,7 @@ class _FusedSharded(torch.autograd.Function):
                        for need, g, t in zip(need_cam, got, leaves)]
         live = [c for c in cam_cts if c is not None]
         flat = torch.cat([grads.reshape(-1)] + [c.reshape(-1) for c in live])
-        torch.distributed.all_reduce(flat)
+        torch.distributed.all_reduce(flat, group=ctx.group)
         sizes = [grads.numel()] + [c.numel() for c in live]
         pieces = iter(flat.split(sizes))
         grads = next(pieces).view_as(grads)

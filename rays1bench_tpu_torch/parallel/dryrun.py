@@ -83,7 +83,10 @@ def run_ranks(fn, n: int, workdir: str, *args, timeout: float = 900.0):
 
 
 def _mesh(shape):
-    from rays1bench_tpu_torch.parallel.mesh import make_mesh, make_mesh2d
+    from rays1bench_tpu_torch.parallel.mesh import (make_mesh, make_mesh2d,
+                                                    make_submesh)
+    if len(shape) == 1 and shape[0] < dist.get_world_size():
+        return make_submesh(shape[0], device="cpu")
     if len(shape) == 1:
         return make_mesh(shape[0], device="cpu")
     return make_mesh2d(*shape, device="cpu")
@@ -104,6 +107,9 @@ def rank_cases(cases):
     - "fit": grad.inverse.fit_scene(mesh=..., engine=kw["engine"],
       kw["steps"] steps on the albedos against a 0.3 target) -> (losses,
       fitted albedo_x);
+    - "camera": grad.inverse.fit_camera(mesh=..., engine=kw["engine"],
+      kw["steps"] steps on lookfrom against a 0.3 target) -> (losses,
+      fitted lookfrom);
     - "cli": bench.cli.render_fn(parse_args(kw["argv"]), scene, mesh) ->
       (image, rays)."""
     import dataclasses
@@ -121,7 +127,9 @@ def rank_cases(cases):
                                                if pad else {}))
         camera = scene.camera.build("cpu")
         mesh = _mesh(shape)
-        if kind == "plain":
+        if mesh is None:
+            out.append(None)
+        elif kind == "plain":
             out.append(shard.render_image_sharded(scene.spheres, camera, cfg,
                                                   mesh))
         elif kind == "kernel":
@@ -155,6 +163,12 @@ def rank_cases(cases):
                 scene.spheres, camera, target, cfg, inv, mesh=mesh,
                 engine=kw["engine"], device="cpu")
             out.append((losses, fitted.albedo_x))
+        elif kind == "camera":
+            target = torch.full((cfg.height, cfg.width, 3), 0.3)
+            fitted, losses = inverse.fit_camera(
+                scene.spheres, scene.camera, target, cfg, steps=kw["steps"],
+                engine=kw["engine"], mesh=mesh, device="cpu")
+            out.append((losses, fitted["lookfrom"]))
         elif kind == "cli":
             from rays1bench_tpu_torch.bench import cli
             fn = cli.render_fn(cli.parse_args(kw["argv"]), scene, mesh)

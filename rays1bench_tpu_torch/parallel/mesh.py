@@ -46,6 +46,29 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = "rays",
     return _mesh((n,), (axis_name,), device)
 
 
+def make_submesh(n_devices: int, axis_name: str = "rays",
+                 device="cuda") -> Optional[DeviceMesh]:
+    """A 1-D mesh over the group's first n_devices ranks, on a subgroup of
+    its own (dist.new_group, which every rank of the group must call, in
+    the same order); None on the ranks outside it. The sharded renders
+    (parallel/shard.render_image_sharded, render_image_pallas_sharded and
+    grad/mega.render_image_mega_sharded) run their collectives on the
+    mesh's group, their gradients' all_reduce included, so the ranks
+    outside it take no part: a scaling sweep's points (bench/scaling.py),
+    or a fit on some of the ranks."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: start one with "
+                           "parallel.multihost.init (or torchrun) first")
+    if not 1 <= n_devices <= dist.get_world_size():
+        raise ValueError(f"a mesh of {n_devices} ranks in a group of "
+                         f"{dist.get_world_size()}")
+    group = dist.new_group(list(range(n_devices)))
+    if dist.get_rank() >= n_devices:
+        return None
+    return DeviceMesh.from_group(group, resolve(device).type,
+                                 mesh_dim_names=(axis_name,))
+
+
 def make_mesh2d(n_tiles: int, n_samples: int,
                 axis_names: Sequence[str] = ("tiles", "samples"),
                 device="cuda") -> DeviceMesh:

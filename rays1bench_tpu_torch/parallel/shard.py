@@ -176,12 +176,22 @@ def _mesh_order(mesh) -> list:
     return mesh.mesh.flatten().tolist()
 
 
+def _mesh_group(mesh):
+    """The process group a mesh's collectives run on: a 1-D mesh's own
+    group (the whole group, or a subgroup from mesh.make_submesh); the
+    default group for a 2-D mesh, which spans it (mesh.make_mesh2d)."""
+    return mesh.get_group() if mesh.ndim == 1 else dist.group.WORLD
+
+
 def all_gather(local: torch.Tensor, mesh) -> torch.Tensor:
     """Every rank's `local` (equal shapes), stacked in mesh order."""
     local = local.contiguous()
-    out = [torch.empty_like(local) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, local)
-    return torch.stack([out[r] for r in _mesh_order(mesh)])
+    group = _mesh_group(mesh)
+    out = [torch.empty_like(local)
+           for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, local, group=group)
+    return torch.stack([out[dist.get_group_rank(group, r)]
+                        for r in _mesh_order(mesh)])
 
 
 class _Gather(torch.autograd.Function):
@@ -201,25 +211,28 @@ class _Gather(torch.autograd.Function):
 
 
 class _Replicated(torch.autograd.Function):
-    """Identity on tensors every rank holds alike (shard_map's P() inputs);
-    the backward sums their cotangents over the group in one all_reduce, as
-    shard_map's transpose psums a replicated input's."""
+    """Identity on tensors every rank of the mesh holds alike (shard_map's
+    P() inputs); the backward sums their cotangents over the mesh's group
+    in one all_reduce, as shard_map's transpose psums a replicated
+    input's."""
 
     @staticmethod
-    def forward(ctx, *tensors):
+    def forward(ctx, group, *tensors):
+        ctx.group = group
         return tuple(t.clone() for t in tensors)
 
     @staticmethod
     def backward(ctx, *grads):
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
-        return tuple(flat.split([g.numel() for g in grads])[k].view_as(g)
-                     for k, g in enumerate(grads))
+        dist.all_reduce(flat, group=ctx.group)
+        return (None,) + tuple(
+            flat.split([g.numel() for g in grads])[k].view_as(g)
+            for k, g in enumerate(grads))
 
 
-def replicated(spheres_soa: SphereSOA, camera: Camera):
-    """The scene and camera through _Replicated when autograd records a
-    float tensor of them (else as they are)."""
+def replicated(spheres_soa: SphereSOA, camera: Camera, mesh):
+    """The scene and camera through _Replicated over `mesh`'s group when
+    autograd records a float tensor of them (else as they are)."""
     objs = (spheres_soa, camera)
     fields = [(k, f.name) for k, o in enumerate(objs)
               for f in dataclasses.fields(o)
@@ -229,7 +242,8 @@ def replicated(spheres_soa: SphereSOA, camera: Camera):
                                             for t in tensors)):
         return spheres_soa, camera
     new = [{}, {}]
-    for (k, name), t in zip(fields, _Replicated.apply(*tensors)):
+    for (k, name), t in zip(fields, _Replicated.apply(
+            _mesh_group(mesh), *tensors)):
         new[k][name] = t
     return tuple(dataclasses.replace(o, **kw) for o, kw in zip(objs, new))
 
@@ -256,10 +270,10 @@ def render_image_sharded(spheres_soa: SphereSOA, camera: Camera,
     camera's cotangents are summed over the group in one all_reduce (so a
     loss must be computed from the image on every rank alike)."""
     n_dev, _, d, _ = layout(mesh, axis_name)
-    spheres_soa, camera = replicated(spheres_soa, camera)
+    spheres_soa, camera = replicated(spheres_soa, camera, mesh)
     part = plain_local(spheres_soa, camera, cfg, n_dev, d)
     count = part.rays.clone()
-    dist.all_reduce(count)
+    dist.all_reduce(count, group=_mesh_group(mesh))
     parts = _Gather.apply(part.rad, mesh, _mesh_order(mesh).index(
         dist.get_rank()))
     return assemble_rays(parts, cfg, (n_dev, 1)), count
@@ -298,7 +312,7 @@ def render_image_pallas_sharded(spheres_soa: SphereSOA, camera: Camera,
     part = kernel_local(spheres_soa, camera, cfg, (n_tiles, n_samp), (i, j),
                         cull, wavefront, n_real, respawn, telemetry)
     count = part.rays.clone()
-    dist.all_reduce(count)
+    dist.all_reduce(count, group=_mesh_group(mesh))
     parts = all_gather(part.rad, mesh)
     assemble = assemble_pixels if respawn else assemble_rays
     image = assemble(parts, cfg, (n_tiles, n_samp))

@@ -5,8 +5,11 @@ CameraSpec.build derives the basis on the host in Python doubles, exactly as
 the JAX package does, and rounds it to float32 tensors once. generate_rays is
 the planar per-ray raygen; its direction normalization takes IEEE 1/sqrt
 (see core/vecmath.py), so it agrees with the JAX package within 2 ulp.
-The differentiable `build_camera` belongs to the gradient path and is not
-ported yet.
+
+build_camera is the same derivation in float32 tensor ops, so that lookfrom
+and vfov can be autograd leaves (grad/inverse.fit_camera). It is held
+against the JAX package's build_camera, never against CameraSpec.build:
+doubles and float32 round the basis differently in both packages.
 """
 
 from __future__ import annotations
@@ -54,6 +57,52 @@ class CameraSpec:
             origin=f32(origin), lower_left=f32(lower_left),
             horizontal=f32(horizontal), vertical=f32(vertical),
             u=f32(u), v=f32(v), lens_radius=f32(self.aperture / 2.0))
+
+
+def _cross(a, b):
+    return torch.stack([a[1] * b[2] - a[2] * b[1],
+                        a[2] * b[0] - a[0] * b[2],
+                        a[0] * b[1] - a[1] * b[0]])
+
+
+def _unit(a):
+    """a / |a|. The squared norm is summed as jnp.linalg.norm's jitted XLA
+    sums it, x0*x0 then two fused multiply-adds, each emulated in float64
+    (a float32 product is exact there) and rounded to float32; the root is
+    correctly rounded (core/vecmath.sqrt)."""
+    d = a.double()
+    sq = (a[0] * a[0]).double()
+    sq = (d[1] * d[1] + sq).float().double()
+    sq = (d[2] * d[2] + sq).float()
+    return a / sqrt(sq)
+
+
+def build_camera(lookfrom, lookat, vup, vfov, aspect, aperture, focus_dist,
+                 device=None) -> "Camera":
+    """Differentiable Camera constructor (rays1bench_tpu/render/camera.py:
+    58-78): CameraSpec.build's derivation (rayweek1.cpp:366-379) in float32
+    tensor ops, so gradients flow from the Camera's tensors back to
+    lookfrom, vfov or any other tensor argument. tan is taken in float64
+    and rounded, as the roots are (core/vecmath.sqrt), so the CPU and the
+    card agree; XLA's tan is within an ulp of it. lookfrom / lookat / vup
+    are length-3 tensors or sequences, vfov is in degrees. The tensors land
+    on `device`, by default lookfrom's (or the CPU for a sequence)."""
+    if device is None and isinstance(lookfrom, torch.Tensor):
+        device = lookfrom.device
+    f32 = lambda t: torch.as_tensor(t, dtype=torch.float32, device=device)
+    lookfrom, lookat, vup = f32(lookfrom), f32(lookat), f32(vup)
+    theta = f32(vfov) * f32(math.pi / 180.0)
+    half_h = torch.tan((theta * 0.5).double()).float()
+    half_w = f32(aspect) * half_h
+    w = _unit(lookfrom - lookat)
+    u = _unit(_cross(vup, w))
+    v = _cross(w, u)
+    fd = f32(focus_dist)
+    lower_left = lookfrom - half_w * fd * u - half_h * fd * v - fd * w
+    return Camera(origin=lookfrom, lower_left=lower_left,
+                  horizontal=2.0 * half_w * fd * u,
+                  vertical=2.0 * half_h * fd * v, u=u, v=v,
+                  lens_radius=f32(aperture / 2.0))
 
 
 @dataclasses.dataclass(frozen=True)

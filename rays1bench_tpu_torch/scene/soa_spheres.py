@@ -2,8 +2,9 @@
 
 Written by hand as a frozen dataclass of tensors; the JAX package's
 counterpart (rays1bench_tpu/scene/soa_spheres.py) is a pytree generated by
-tools/soa_codegen.py. Only the columns and the builder's add/finalize are
-ported. Rows whose radius is 0.0 are placeholders (rayweek1.cpp:575-576).
+tools/soa_codegen.py. The builder has the reference container's mutation
+surface (add/reserve/remove/copy, soa_sphere.h:22-63). Rows whose radius is
+0.0 are placeholders (rayweek1.cpp:575-576).
 """
 
 from __future__ import annotations
@@ -44,10 +45,17 @@ class SphereSOA:
         """Padded row count."""
         return self.center_x.shape[0]
 
+    def astype(self, dtype) -> "SphereSOA":
+        """Every float column cast to `dtype` (mat_type untouched)."""
+        return dataclasses.replace(self, **{
+            name: getattr(self, name).to(dtype)
+            for name in COLUMNS if name != "mat_type"})
+
 
 class SphereSOABuilder:
-    """Host-side builder: add() rows, then finalize() pads to a multiple of
-    `pad_multiple` rows with placeholders and returns the SphereSOA."""
+    """Host-side builder: add(), remove() and copy_from() rows, then
+    finalize() pads to a multiple of `pad_multiple` rows with placeholders
+    and returns the SphereSOA."""
 
     def __init__(self):
         self.rows = {name: [] for name in COLUMNS}
@@ -55,6 +63,10 @@ class SphereSOABuilder:
     @property
     def count(self) -> int:
         return len(self.rows["center_x"])
+
+    def reserve(self, n: int) -> None:
+        """No-op capacity hint (the reference grows 1 + 2 * cap,
+        soa_sphere.cpp:90; Python lists manage their own capacity)."""
 
     def add(self, center_x, center_y, center_z, radius, mat_type,
             albedo_x, albedo_y, albedo_z, fuzz, ref_idx) -> int:
@@ -64,6 +76,17 @@ class SphereSOABuilder:
                                      fuzz, ref_idx)):
             self.rows[name].append(v)
         return self.count - 1
+
+    def remove(self, index: int) -> None:
+        """Remove a row by moving the last row into its place (the
+        reference's semantics, soa_sphere.cpp:108-121)."""
+        for col in self.rows.values():
+            col[index] = col[-1]
+            col.pop()
+
+    def copy_from(self, other: "SphereSOABuilder") -> None:
+        """Replace every row with a copy of other's rows."""
+        self.rows = {name: list(other.rows[name]) for name in COLUMNS}
 
     def finalize(self, pad_multiple: int = 128, device="cuda") -> SphereSOA:
         device = resolve(device)

@@ -45,14 +45,47 @@ def test_flags_and_defaults():
 
 @pytest.mark.parametrize("flags", [["--sharded", "2"],
                                    ["--profile", "trace_dir"], ["--report"]])
-def test_unported_flags_name_their_roadmap_item(flags, tmp_path):
-    """--profile and --report raise. --sharded is ported: under two gloo
-    ranks (parallel/dryrun.run_ranks) --sharded 2 renders, through each
-    engine's sharded path, every rank the image and count of the engine
-    without a mesh."""
+def test_unported_flags_name_their_roadmap_item(flags, tmp_path, monkeypatch,
+                                                capsys):
+    """Every flag is ported now; the name stays. --profile and --report run
+    main() on the CPU through a stand-in harness (as
+    test_records_parse_with_the_jax_report does): --profile writes one
+    Chrome trace (utils/profiling.py) holding the benchmark's own ops,
+    --report prints the table of the record just written (bench/report.py).
+    --sharded: under two gloo ranks (parallel/dryrun.run_ranks) --sharded 2
+    renders, through each engine's sharded path, every rank the image and
+    count of the engine without a mesh."""
     if flags[0] != "--sharded":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(flags)
+        from rays1bench_tpu_torch.utils import profiling
+        small = builders.SCENES["small"]
+        monkeypatch.setitem(builders.SCENES, "small",
+                            lambda aspect, device: small(aspect,
+                                                         device="cpu"))
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(bench_profile, "smi", lambda *q: ["Card, 1 W"])
+
+        def fake_benchmark(scene, cfg, num_runs=1, render_fn=None):
+            torch.ones(8).mul(2)
+            return [harness.BenchResult(0.5, 1_000_000)]
+
+        monkeypatch.setattr(harness, "benchmark", fake_benchmark)
+        monkeypatch.chdir(tmp_path)
+        cli.main(["--scenes", "small", "--quick", "--out-dir", "out"]
+                 + flags)
+        out = capsys.readouterr().out
+        assert "native runtime: " in out.splitlines()[1]
+        traces = profiling.trace_files("trace_dir")
+        if flags[0] == "--profile":
+            assert len(traces) == 1 and "profile trace written to " \
+                "trace_dir" in out
+            assert "aten::mul" in (tmp_path / traces[0]).read_text()
+            assert "### small" not in out
+        else:
+            assert not traces
+            table = jreport.markdown_table(jreport.collect(["out"], "small"))
+            assert f"### small\n{table}\n" in out
+            assert "| **cuda-latest** | 0.500 s | 1,000,000 | **2.000** |" \
+                in table
         return
     assert cli.parse_args(flags).sharded == 2
     kw = dict(width=16, height=8, spp=2, max_bounces=4)

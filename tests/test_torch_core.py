@@ -165,15 +165,18 @@ def test_reflect_and_dot_bit_exact():
 
 def test_port_never_imports_jax():
     """Importing every module of the port (and chip_smoke.py), the gradient
-    slice's included, leaves jax out of sys.modules."""
+    slice's and the tooling's included, leaves jax out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rays1bench_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
-        "assert len(names) >= 26, names\n"
+        "assert len(names) >= 36, names\n"
         "for n in ('grad.mega', 'grad.inverse', 'grad.checkpoint', "
-        "'kernels.mega_backward', 'bench.grad'):\n"
+        "'kernels.mega_backward', 'bench.grad', 'grad.fd', "
+        "'runtime.native', 'runtime.build', 'utils.profiling', "
+        "'utils.metrics', 'bench.scaling', 'bench.report', "
+        "'bench.report_cli', 'examples.inverse_rendering'):\n"
         "    assert 'rays1bench_tpu_torch.' + n in names, n\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
@@ -185,3 +188,36 @@ def test_port_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# Modules of the JAX package whose port has another name.
+RENAMED = {"kernels/intersect_pallas.py": "kernels/intersect_index.py",
+           "__graft_entry__.py": "parallel/dryrun.py",
+           "bench.py": "bench/__main__.py"}
+
+
+def test_the_port_has_every_module_of_the_jax_package():
+    """Each module of rays1bench_tpu/ (by file name, with its C++ source),
+    the example and the root entry points, has its counterpart in
+    rays1bench_tpu_torch/, under its own name or RENAMED's; only ROADMAP.md's
+    "Not ported by design" modules are excepted. Nothing is imported."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    jax_pkg, port = root / "rays1bench_tpu", root / "rays1bench_tpu_torch"
+    roadmap = (root / "ROADMAP.md").read_text()
+    by_design = roadmap[roadmap.index("**Not ported by design.**"):]
+    by_design = by_design[:by_design.index("\n\n")]
+    modules = [p.relative_to(jax_pkg).as_posix()
+               for p in jax_pkg.rglob("*") if p.suffix in (".py", ".cpp")]
+    modules += ["__graft_entry__.py", "bench.py"] + [
+        p.relative_to(root).as_posix()
+        for p in (root / "examples").glob("*.py")]
+    assert len(modules) > 45 and "examples/inverse_rendering.py" in modules
+    missing, excepted = [], []
+    for m in sorted(modules):
+        if f"`{m}`" in by_design:
+            excepted.append(m)
+        elif not (port / RENAMED.get(m, m)).is_file():
+            missing.append(m)
+    assert not missing, missing
+    assert excepted == ["core/cache.py"]
+    assert not (port / "core" / "cache.py").exists()

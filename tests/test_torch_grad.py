@@ -1,9 +1,10 @@
 """Parity of the port's gradient slice (rays1bench_tpu_torch.grad) with the
 JAX package's on the CPU: render_image_mega's value and gradients, three
 steps of the Adam fit, and a fit carried across through a JAX checkpoint.
-Also: the entry points run on the card unless the caller asks for the CPU,
-the unported modes raise, and engine="pipeline" and auto's route to it
-work (tests/test_torch_pipeline_grad.py holds that engine to JAX).
+Also: the entry points run on the card unless the caller asks for the
+CPU, the modes once unported (fit_camera, a mesh) run, and
+engine="pipeline" and auto's route to it work
+(tests/test_torch_pipeline_grad.py holds that engine to JAX).
 
 JAX's Pallas kernels run in interpret mode (fused=True, interpret=True), as
 tests/test_grad.py runs them. Scene and camera leaves go across as numpy
@@ -309,8 +310,13 @@ def test_entry_points_run_on_the_card_unless_asked():
 
 
 def test_unported_modes_raise_with_their_roadmap_item(tmp_path):
-    """fit_camera raises. A mesh is ported (parallel/, here a group of one
-    gloo rank): fit_scene(mesh=...) fits, and each engine's render on it is
+    """Every mode is ported now; the name stays. fit_camera runs (its
+    parity with the JAX package: tests/test_torch_camera_fit.py), and with
+    mesh= on a group of one gloo rank each engine's camera step, whose
+    camera cotangent reaches leaves built every step (through the sharded
+    fused path's raygen VJP on "mega"), gives the loss and the leaf of the
+    step without a mesh. A mesh is ported (parallel/, here that group):
+    fit_scene(mesh=...) fits, and each engine's render on it is
     the one without a mesh (tests/test_torch_shard_grad.py holds four
     ranks to one). engine="pipeline" is ported: it renders the plain
     pipeline with the index sweep. A scene the fused backward cannot take
@@ -346,10 +352,19 @@ def test_unported_modes_raise_with_their_roadmap_item(tmp_path):
         _, want_losses = inverse.fit_scene(scene.spheres, cam, target, cfg,
                                            inv, device="cpu")
         assert losses == want_losses and losses[1] < losses[0]
+        for engine in ("pipeline", "mega"):
+            fitted, losses = inverse.fit_camera(
+                scene.spheres, scene.camera, target, cfg, steps=1,
+                engine=engine, mesh=mesh, device="cpu")
+            want, want_losses = inverse.fit_camera(
+                scene.spheres, scene.camera, target, cfg, steps=1,
+                engine=engine, device="cpu")
+            assert losses == want_losses, engine
+            assert torch.equal(fitted["lookfrom"], want["lookfrom"]), engine
+            assert not torch.equal(fitted["lookfrom"], torch.tensor(
+                scene.camera.lookfrom, dtype=torch.float32)), engine
     finally:
         dist.destroy_process_group()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inverse.fit_camera(scene.spheres, scene.camera, None, cfg)
     deep = cfg.replace(max_bounces=51)
     want, _ = render_image(scene.spheres, cam,
                            deep.replace(early_exit=False,

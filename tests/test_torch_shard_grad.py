@@ -145,3 +145,38 @@ def test_fit_scene_on_a_mesh(port, engine):
     assert all(torch.equal(r[f"fit_{engine}"][1], fitted) for r in port)
     assert losses[1] < losses[0]
 
+
+
+@pytest.mark.parametrize("engine", ["mega", "pipeline"])
+def test_fits_on_a_submesh_of_one_rank(tmp_path, engine):
+    """Two gloo ranks, a mesh of the first alone (parallel.mesh.
+    make_submesh): fit_camera and fit_scene through it take two steps
+    whose collectives, the gradients' all_reduce included, stay on the
+    mesh's group, so the rank outside it takes no part and nothing waits
+    for it. The steps equal the one-process fit's (one rank sums
+    nothing)."""
+    from rays1bench_tpu_torch.core.config import RenderConfig
+    from rays1bench_tpu_torch.scene import builders
+
+    cases = [(kind, "small", 8, HARD, (1,), dict(engine=engine, steps=2))
+             for kind in ("camera", "fit")]
+    ranks = run_ranks(rank_cases, 2, str(tmp_path), cases, timeout=240.0)
+    assert ranks[1] == [None, None]
+    (cam_losses, lookfrom), (fit_losses, albedo_x) = ranks[0]
+    cfg = RenderConfig(**HARD)
+    scene = builders.create_small_scene(cfg.aspect, pad_multiple=8,
+                                        device="cpu")
+    target = torch.full((cfg.height, cfg.width, 3), 0.3)
+    want, want_losses = inverse.fit_camera(
+        scene.spheres, scene.camera, target, cfg, steps=2, engine=engine,
+        device="cpu")
+    assert cam_losses == want_losses
+    assert torch.equal(lookfrom, want["lookfrom"])
+    assert not torch.equal(lookfrom, torch.tensor(scene.camera.lookfrom))
+    inv = inverse.InverseConfig(steps=2, learning_rate=1e-2,
+                                optimize=("albedo_x", "albedo_y", "albedo_z"))
+    fitted, want_losses = inverse.fit_scene(
+        scene.spheres, scene.camera.build("cpu"), target, cfg, inv,
+        engine=engine, device="cpu")
+    assert fit_losses == want_losses and fit_losses[1] < fit_losses[0]
+    assert torch.equal(albedo_x, fitted.albedo_x)
