@@ -2145,12 +2145,15 @@ def camfit():
 def tooling():
     """[tooling] The tooling on the card: bench.cli --scenes small --profile
     --report --save once, its Chrome trace holding the one-shot kernel's
-    CUDA events, its report table the record just written, the native
+    CUDA events and the program's spans (none of them named as a device
+    event), its report table the record just written, the native
     runtime built and its TGA the bytes of scene/tga.write_rgb24 and its
     tonemap the device's to_srgb_u8; device_memory_stats' peak; the
-    one-rank point of bench.scaling (telemetry on). Returns the one-shot
-    kernel's launches (the CLI's and the scaling point's) and its kIters
-    instantiation's (the scaling point's telemetry)."""
+    one-rank point of bench.scaling (telemetry on, with its rank's times
+    from the recorder). The CLI's traced frames run the one-shot kernel
+    without kIters. Returns the one-shot kernel's launches (the CLI's and
+    the scaling point's) and its kIters instantiation's (the scaling
+    point's telemetry)."""
     out_dir = tempfile.mkdtemp(prefix="rays1bench_tooling_")
     logdir = os.path.join(out_dir, "trace")
     reset_launches()
@@ -2162,15 +2165,23 @@ def tooling():
     launches = megakernel.ONESHOT_LAUNCHES
     for line in text.splitlines():
         print(f"[tooling] cli: {line}", flush=True)
-    if launches < 2:
-        raise AssertionError("[tooling] the CLI did not run the one-shot "
-                             "kernel")
+    if launches < 2 or megakernel.ONESHOT_ITERS_LAUNCHES:
+        raise AssertionError(f"[tooling] the CLI ran the one-shot kernel "
+                             f"{launches} times, its kIters instantiation "
+                             f"{megakernel.ONESHOT_ITERS_LAUNCHES}")
     traces = profiling.trace_files(logdir)
     if len(traces) != 1:
         raise AssertionError(f"[tooling] traces in {logdir}: {traces}")
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    spans = {e["name"] for e in events if e.get("cat") == "program_span"}
+    print(f"[tooling] the trace's program spans: {sorted(spans)}",
+          flush=True)
+    if not {"frame", "prepare", "raygen", "kernel", "reduce"} <= spans \
+            or spans & names:
+        raise AssertionError(f"[tooling] the trace's spans {sorted(spans)} "
+                             f"against its kernels {sorted(names)}")
     ran = sorted(k for k, fn in TRACE_FUNCTIONS.items()
                  if any(bench_grad.is_kernel(n, fn) for n in names))
     print(f"[tooling] {os.path.basename(traces[0])}: {len(events)} events, "
@@ -2232,7 +2243,8 @@ def tooling():
         print(f"[tooling] scaling: {line}", flush=True)
     if not (len(points) == 1 and points[0].n_devices == 1
             and points[0].num_rays == telems[0]["device_rays"][0] > 0
-            and iters_launches):
+            and iters_launches
+            and all(telems[0][k][0] > 0 for k in scaling.RANK_MS)):
         raise AssertionError(f"[tooling] scaling point {points} {telems}")
     return launches, iters_launches
 

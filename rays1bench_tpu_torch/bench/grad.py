@@ -28,10 +28,15 @@ probe's stage 2 starts from its stage-1 fit. The target is the unmoved
 scene's soft render through the same engine.
 After WARMUP untimed steps, --steps steps run back to back between two CUDA
 events. Then, each measured once more:
-  - one step split at its phase boundaries by CUDA events that the step
-    itself records (make_train_step's mark): forward (raygen, the topology
-    kernel, the image), loss, backward (the fused kernel and autograd's
-    chain onto the scene and camera tensors), Adam;
+  - one step split into its phases by the stream ms of the spans the
+    step itself records (make_train_step's, in utils/profiling.session(),
+    a host-only torch.profiler session that turns the recorder on):
+    forward (raygen, the topology kernel, the image), loss, backward (the
+    fused kernel and autograd's chain onto the scene and camera tensors),
+    Adam, and that profiled step's own total ("step"). The session's host
+    cost stretches a host-paced step, so the split is of the profiled step
+    and not of s_per_step: phase_share gives each phase as a share of the
+    profiled step's total;
   - each mega kernel alone on the last step's inputs (launch_ms: median of
     3 launches, each timed alone behind a device-side wait, with the host's
     time to issue it), engine "mega" only;
@@ -55,7 +60,7 @@ import time
 import numpy as np
 import torch
 
-from rays1bench_tpu_torch.bench.profile import busy_us, smi
+from rays1bench_tpu_torch.bench.profile import smi
 from rays1bench_tpu_torch.core.config import RenderConfig
 from rays1bench_tpu_torch.grad.inverse import (InverseConfig, make_train_step,
                                                params_of, render_for_loss,
@@ -67,11 +72,13 @@ from rays1bench_tpu_torch.kernels.pipeline import ray_coords
 from rays1bench_tpu_torch.render.pipeline import primary_rays
 from rays1bench_tpu_torch.scene import builders
 from rays1bench_tpu_torch.scene.spheres import prepare
+from rays1bench_tpu_torch.utils import profiling
 
 # The port's kernels by the name of their __global__ function (is_kernel).
 KERNELS = {"oneshot": "oneshot_kernel", "mega_backward": "backward_kernel",
            "intersect_index": "index_kernel"}
 TOP_KERNELS = 5
+PHASES = ("forward", "loss", "backward", "adam")
 PROFILED_STEPS = {"mega": 3, "pipeline": 1}
 ALBEDOS = ("albedo_x", "albedo_y", "albedo_z")
 # The geometry recipes of --soft: (seed, {column: {row: offset}}, optimized
@@ -189,18 +196,13 @@ def kernel_ms(spheres, camera, cfg):
 
 
 def phase_ms(step, target):
-    """One step of make_train_step's, split into its phases by the CUDA
-    events it records at its marks: {phase: ms}."""
-    marks = []
-
-    def mark():
-        marks.append(torch.cuda.Event(enable_timing=True))
-        marks[-1].record()
-
-    step(target, mark)
-    marks[-1].synchronize()
-    names = ("forward", "loss", "backward", "adam")
-    return {n: a.elapsed_time(b) for n, a, b in zip(names, marks, marks[1:])}
+    """One step of make_train_step's under profiling.session(), split into
+    its phases by the stream ms of the spans it records: {phase: ms}, and
+    "step" the profiled step's own total."""
+    with profiling.session():
+        step(target)
+    torch.cuda.synchronize()
+    return {n: profiling.spans(n)[0].stream_ms for n in PHASES + ("step",)}
 
 
 def device_split(step, target, steps=3):
@@ -221,8 +223,8 @@ def device_split(step, target, steps=3):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         return None
-    span = lambda es: busy_us((e.time_range.start, e.time_range.end)
-                              for e in es) / 1e3
+    span = lambda es: profiling.busy_us(
+        (e.time_range.start, e.time_range.end) for e in es) / 1e3
     by_name = collections.defaultdict(float)
     for e in dev:
         by_name[e.name[:80]] += (e.time_range.end - e.time_range.start) / 1e3
@@ -268,7 +270,9 @@ def run(scene_name, cfg, steps=8, engine="mega"):
         "max_bounces": cfg.max_bounces, "steps": steps,
         "s_per_step": per_step, "steps_per_sec": 1.0 / per_step,
         "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
-        "phase_ms": phases, "kernel_ms": kernels,
+        "phase_ms": phases,
+        "phase_share": {n: phases[n] / phases["step"] for n in PHASES},
+        "kernel_ms": kernels,
         "kernel_launch_ms": launches, "rays_per_step": rays,
         "profiled_steps": None}
     if split is not None:

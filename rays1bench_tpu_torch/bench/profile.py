@@ -4,31 +4,31 @@
 
 Every frame is 1280x720 @ 50 bounces through render_image_megakernel, at
 250 spp (the giant scene at 16 spp, since one of its frames at 250 spp takes
-half a minute). For the large scene, the headline, it first prints
-  - host prep: prepare_trimmed and the packing, wall ms between two device
-    synchronizations (median of 5);
-  - one frame under torch.profiler: its wall ms, the device's busy ms (the
-    union of all device events), the respawn kernel's device ms, and the
-    idle share 1 - busy / wall.
-Then for the large, medium, small and giant scenes, three frames each timed
-with CUDA events (rays, ms and mrays/s), while nvidia-smi samples the power
-draw and the SM clock every 100 ms (median and max over the samples). The
-first line names the card and its power limit.
+half a minute). For the large scene, the headline, it first prints the
+table of the spans and counters that utils/profiling records over one
+frame under a host-only torch.profiler session (a warm one traced first):
+per span its host ms, stream ms and self time (host ms less its
+children's), then the frame's rays and, for the respawn engine, its warp
+trips and lane occupancy (rays / (32 x trips)); once for the respawn
+engine at 250 spp and once for the one-shot engine at the CLI's 10 spp. Then for the large, medium, small
+and giant scenes, three frames each timed with CUDA events (rays, ms and
+mrays/s), while nvidia-smi samples the power draw and the SM clock every
+100 ms (median and max over the samples). The first line names the card
+and its power limit.
 """
 
 from __future__ import annotations
 
 import statistics
 import subprocess
-import time
 
 import torch
 
 from rays1bench_tpu_torch.core.config import RenderConfig
-from rays1bench_tpu_torch.kernels.megakernel import pack_camera, pack_spheres
-from rays1bench_tpu_torch.kernels.pipeline import (prepare_trimmed,
-                                                   render_image_megakernel)
+from rays1bench_tpu_torch.kernels.megakernel import WARP_LANES
+from rays1bench_tpu_torch.kernels.pipeline import render_image_megakernel
 from rays1bench_tpu_torch.scene import builders
+from rays1bench_tpu_torch.utils import profiling
 
 SCENES = ("large", "medium", "small", "giant")
 FRAMES = 3
@@ -41,51 +41,26 @@ def smi(*query: str) -> list:
     return out.stdout.strip().splitlines()
 
 
-def busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy
-
-
-def host_prep_ms(scene) -> float:
-    def prep():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pack_spheres(prepare_trimmed(scene.spheres, scene.n_real))
-        pack_camera(scene.camera.build("cuda"))
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-    prep()
-    return statistics.median(prep() for _ in range(5))
-
-
-def profiled_frame(scene, cfg):
-    """(wall ms, device busy ms or None, kernel device ms or None) of one
-    frame under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+def span_lines(scene, cfg, respawn, label) -> list:
+    """The recorder's table of one frame: a line per span, then one of the
+    frame's counters."""
     camera = scene.camera.build("cuda")
-    render = lambda: render_image_megakernel(scene.spheres, camera, cfg,
-                                             n_real=scene.n_real)
-    render()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for _ in range(2):  # a warm frame, then the one read
+        with profiling.session():
+            render_image_megakernel(scene.spheres, camera, cfg,
+                                    n_real=scene.n_real, respawn=respawn)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        render()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev:
-        return wall, None, None
-    busy = busy_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3
-    kernel = busy_us((e.time_range.start, e.time_range.end) for e in dev
-                      if "respawn_kernel" in e.name) / 1e3
-    return wall, busy, kernel
+    out = []
+    for r in profiling.table():
+        stream = "-" if r["stream_ms"] is None else f"{r['stream_ms']:.3f}"
+        out.append(f"[spans] {label}: {r['name']} (in {r['parent']}) host "
+                   f"{r['host_ms']:.3f} ms, stream {stream} ms, self "
+                   f"{r['self_ms']:.3f} ms")
+    rays, trips = profiling.total("rays"), profiling.total("warp_trips")
+    occ = (f", warp trips {trips}, lane occupancy "
+           f"{100.0 * rays / (WARP_LANES * trips):.3f}%") if trips else ""
+    out.append(f"[spans] {label}: {rays} rays{occ}")
+    return out
 
 
 def timed_frames(scene, cfg, frames):
@@ -136,17 +111,13 @@ def main():
         scene = builders.SCENES[name](cfg.aspect, device="cuda")
         label = f"{name} 1280x720 @ {spp} spp @ 50 b"
         if name == "large":
-            print(f"[prep] {label}: host prep {host_prep_ms(scene):.3f} "
-                  f"ms (median of 5)", flush=True)
-            wall, busy, kernel = profiled_frame(scene, cfg)
-            if busy is None:
-                print(f"[profile] {label}: wall {wall:.1f} ms; device time "
-                      f"not measured (the profiler recorded no device "
-                      f"events)", flush=True)
-            else:
-                print(f"[profile] {label}: wall {wall:.1f} ms, device busy "
-                      f"{busy:.1f} ms, respawn kernel {kernel:.1f} ms, idle "
-                      f"share {1.0 - busy / wall:.4f}", flush=True)
+            for line in span_lines(scene, cfg, True, f"{label} respawn"):
+                print(line, flush=True)
+            cli = RenderConfig(width=1280, height=720, spp=10,
+                               max_bounces=50)
+            for line in span_lines(scene, cli, False,
+                                   "large 1280x720 @ 10 spp @ 50 b one-shot"):
+                print(line, flush=True)
         frames, samples = timed_frames(scene, cfg, FRAMES)
         for rays, ms in frames:
             print(f"[frame] {label}: {rays} rays, {ms:.2f} ms, "

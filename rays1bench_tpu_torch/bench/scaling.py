@@ -15,8 +15,17 @@ A point's time is the best of --runs frames after a warm one, on rank 0's
 host clock around the render and a device synchronize (the render ends in
 an all_gather, so rank 0 waits for the slowest rank). Rays and times go
 through utils/metrics (ScalingPoint, scaling_efficiency). --telemetry
-(kernel engine) adds each rank's rays and warp loop trips (the kernels'
-kIters counters), the load-imbalance signal.
+(kernel engine) then renders TELEMETRY_FRAMES frames with telemetry in a
+utils/profiling.session() and adds each rank's rays and warp loop trips of
+the last (the kernels' kIters counters), the load-imbalance signal, and,
+from rank 0's recorder (parallel/shard.rank_timings), each rank's median
+over the frames of its "local" ms (its kernel_local) and its ms from
+reaching the all_reduce to the end of the all_gather (stream ms on the
+card, host ms on gloo CPU ranks), and its host's issue of a frame (the
+"frame" span's host ms). A rank sends a
+frame's times with a later frame's gather, so the last frame's arrive
+with none. The busiest rank (most trips) that waits little in the
+collectives sets the pace; ranks that wait long are held by it.
 
 The ranks: under torchrun, its group (NCCL on the card); on one card
 without torchrun, a group of one, so only the one-rank point runs. With
@@ -29,6 +38,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import statistics
 import tempfile
 import time
 from typing import List
@@ -36,7 +46,11 @@ from typing import List
 import torch
 import torch.distributed as dist
 
+from rays1bench_tpu_torch.utils import profiling
 from rays1bench_tpu_torch.utils.metrics import ScalingPoint, scaling_efficiency
+
+TELEMETRY_FRAMES = 4
+RANK_MS = ("local_ms", "collective_ms", "issue_ms")
 
 
 def sweep(scene_name: str, cfg, device_counts: List[int], runs: int = 2,
@@ -45,8 +59,9 @@ def sweep(scene_name: str, cfg, device_counts: List[int], runs: int = 2,
     """Run on every rank of the process group. Returns (points, telemetry)
     on rank 0, None on the others: points a list of ScalingPoint, one per
     count; telemetry (with telemetry=True, kernel engine only; else None)
-    a parallel list of {"device_rays": [...], "device_iters": [...]}, one
-    entry per rank of the point."""
+    a parallel list of {"device_rays": [...], "device_iters": [...],
+    "local_ms": [...], "collective_ms": [...], "issue_ms": [...]}, one
+    entry per rank of the point (telemetry_frames)."""
     from rays1bench_tpu_torch.parallel.mesh import make_submesh
     from rays1bench_tpu_torch.parallel.shard import (
         render_image_pallas_sharded, render_image_sharded)
@@ -82,13 +97,32 @@ def sweep(scene_name: str, cfg, device_counts: List[int], runs: int = 2,
                     best = min(best, time.perf_counter() - t0)
                 points.append(ScalingPoint(n, int(rays), best))
                 if telemetry:
-                    _, _, tl = render(mesh, telemetry=True)
-                    telems.append({k: v.reshape(-1).tolist()
-                                   for k, v in tl.items()})
+                    telems.append(telemetry_frames(render, mesh, sync))
             dist.barrier()
     if dist.get_rank() != 0:
         return None
     return points, (telems if telemetry else None)
+
+
+def telemetry_frames(render, mesh, sync, frames: int = TELEMETRY_FRAMES):
+    """`frames` telemetry frames, each synchronised, in a
+    profiling.session(): {"device_rays", "device_iters"} of the last, and
+    per rank of the mesh its median RANK_MS over the frames whose times
+    arrived (None where none did)."""
+    from rays1bench_tpu_torch.parallel.shard import rank_timings
+
+    with profiling.session():
+        for _ in range(frames):
+            _, _, tl = render(mesh, telemetry=True)
+            sync()
+    out = {k: v.reshape(-1).tolist() for k, v in tl.items()}
+    timings = [t["ranks"] for t in rank_timings().values()]
+    for k in RANK_MS:
+        out[k] = []
+        for r in range(len(out["device_rays"])):
+            got = [t[r][k] for t in timings if r in t]
+            out[k].append(statistics.median(got) if got else None)
+    return out
 
 
 def _sweep_rank(*args):
@@ -182,6 +216,10 @@ def print_sweep(args, out, device):
         if telems:
             print(f"         per-rank rays  {telems[i]['device_rays']}")
             print(f"         per-rank trips {telems[i]['device_iters']}")
+            for k in RANK_MS:
+                ms = ", ".join("-" if v is None else f"{v:.3f}"
+                               for v in telems[i][k])
+                print(f"         per-rank {k} (median) [{ms}]")
     if args.record:
         os.makedirs(os.path.dirname(args.record) or ".", exist_ok=True)
         label = (f"{args.scene} {args.width}x{args.height} @ {args.spp} spp, "

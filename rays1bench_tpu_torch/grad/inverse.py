@@ -47,6 +47,7 @@ from rays1bench_tpu_torch.render.camera import (Camera, CameraSpec,
                                                 build_camera)
 from rays1bench_tpu_torch.render.pipeline import render_image
 from rays1bench_tpu_torch.scene.soa_spheres import SphereSOA
+from rays1bench_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,25 +162,22 @@ def _loss_of(imgs, target: torch.Tensor) -> torch.Tensor:
     return torch.mean((imgs[0] - target) * (imgs[1] - target))
 
 
-def _no_mark():
-    pass
-
-
 def make_train_step(spheres_template: SphereSOA, camera: Camera,
                     cfg: RenderConfig, inv: InverseConfig,
                     params: Dict[str, torch.Tensor], mesh=None,
                     engine: str = "auto"):
     """Build (step, optimizer) over the parameter dict, whose tensors the
-    step updates in place. step(target, mark) -> the loss before the update
-    (a 0-dim tensor); mark() is called before the forward and after the
-    forward (two renders under soft silhouettes), the loss, the backward
-    and the Adam update (bench.grad records a CUDA event there). Row masks
-    zero the gradient of rows outside inv.rows / inv.rows_by before Adam
-    sees it, as the JAX step does."""
+    step updates in place. step(target) -> the loss before the update (a
+    0-dim tensor). While utils/profiling records, a step records the span
+    "step" and, inside it, "forward" (two renders under soft silhouettes),
+    "loss", "backward" and "adam", on the stream too on a CUDA device. Row
+    masks zero the gradient of rows outside inv.rows / inv.rows_by before
+    Adam sees it, as the JAX step does."""
     optimizer = torch.optim.Adam(list(params.values()),
                                  lr=inv.learning_rate, eps=1e-8)
     n_rows = spheres_template.count
     device = spheres_template.center_x.device
+    cuda = device.type == "cuda"
 
     def to_mask(rows):
         m = torch.zeros(n_rows, dtype=torch.float32, device=device)
@@ -193,21 +191,21 @@ def make_train_step(spheres_template: SphereSOA, camera: Camera,
         if rows is not None:
             masks[name] = to_mask(rows)
 
-    def step(target, mark=_no_mark):
-        optimizer.zero_grad(set_to_none=True)
-        mark()
-        spheres = with_params(spheres_template, params)
-        imgs = [render_for_loss(spheres, camera, c, mesh, engine)
-                for c in _loss_cfgs(cfg)]
-        mark()
-        loss = _loss_of(imgs, target)
-        mark()
-        loss.backward()
-        for name, m in masks.items():
-            params[name].grad.mul_(m)
-        mark()
-        optimizer.step()
-        mark()
+    def step(target):
+        with profiling.span("step", cuda):
+            optimizer.zero_grad(set_to_none=True)
+            with profiling.span("forward", cuda):
+                spheres = with_params(spheres_template, params)
+                imgs = [render_for_loss(spheres, camera, c, mesh, engine)
+                        for c in _loss_cfgs(cfg)]
+            with profiling.span("loss", cuda):
+                loss = _loss_of(imgs, target)
+            with profiling.span("backward", cuda):
+                loss.backward()
+                for name, m in masks.items():
+                    params[name].grad.mul_(m)
+            with profiling.span("adam", cuda):
+                optimizer.step()
         return loss.detach()
 
     return step, optimizer

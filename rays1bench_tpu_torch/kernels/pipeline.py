@@ -28,6 +28,7 @@ import torch
 from rays1bench_tpu_torch.core.config import RenderConfig
 from rays1bench_tpu_torch.kernels import culling
 from rays1bench_tpu_torch.kernels.megakernel import (pack_camera, pack_spheres,
+                                                     respawn_iters_reference,
                                                      trace_oneshot,
                                                      trace_respawn,
                                                      trace_topology,
@@ -36,6 +37,7 @@ from rays1bench_tpu_torch.render.camera import Camera
 from rays1bench_tpu_torch.render.pipeline import primary_rays
 from rays1bench_tpu_torch.scene.soa_spheres import COLUMNS, SphereSOA
 from rays1bench_tpu_torch.scene.spheres import PreparedSpheres, prepare
+from rays1bench_tpu_torch.utils import profiling
 
 # Rows are kept in multiples of this (the JAX pipeline's granule at its
 # default auto unroll).
@@ -88,27 +90,58 @@ def render_image_megakernel(spheres_soa: SphereSOA, camera: Camera,
     Runs the CUDA kernels when the scene's tensors are on a CUDA device and
     their plain versions on the CPU.
 
+    While utils/profiling records, the frame records the spans "frame" and,
+    inside it, "prepare" (the Morton sort, trim and packing), "raygen" (the
+    primary rays; not with respawn), "kernel" and "reduce" (the image), on
+    the stream too where the scene is on a CUDA device, and the counters
+    "rays" and, with respawn, "warp_trips" (count_warp_trips).
+
     Returns (image float32[H, W, 3], mean radiance per pixel, row 0 at the
     bottom; num_rays int64 0-dim tensor)."""
     if respawn and wavefront is not None:
         raise ValueError("respawn and wavefront are alternative scheduling "
                          "strategies")
-    spheres = prepare_trimmed(spheres_soa, n_real)
-    packed = pack_spheres(spheres)
-    if respawn:
-        (rr, rg, rb), _, total = trace_respawn(packed, pack_camera(camera),
-                                               cfg)
-        rad = torch.stack([rr, rg, rb], dim=-1).reshape(cfg.height,
-                                                        cfg.width, 3)
-        return rad * (1.0 / cfg.spp), total
-    ray_id, x, y = ray_coords(cfg, packed.device)
-    rays = [r.contiguous() for r in primary_rays(camera, cfg, x, y, ray_id)]
-    if wavefront is None:
-        (rr, rg, rb), _, total = trace_oneshot(packed, *rays, ray_id, cfg)
-    else:
-        (rr, rg, rb), _, total = trace_wavefront(packed, *rays, ray_id, cfg,
-                                                 wavefront)
-    return image_of_rays(rr, rg, rb, cfg), total
+    cuda = spheres_soa.center_x.is_cuda
+    with profiling.span("frame", cuda):
+        with profiling.span("prepare", cuda):
+            packed = pack_spheres(prepare_trimmed(spheres_soa, n_real))
+            if respawn:
+                cam = pack_camera(camera)
+        if respawn:
+            with profiling.span("kernel", cuda):
+                out = trace_respawn(packed, cam, cfg)
+            with profiling.span("reduce", cuda):
+                rad = torch.stack(out[0], dim=-1).reshape(cfg.height,
+                                                          cfg.width, 3)
+                image = rad * (1.0 / cfg.spp)
+        else:
+            with profiling.span("raygen", cuda):
+                ray_id, x, y = ray_coords(cfg, packed.device)
+                rays = [r.contiguous()
+                        for r in primary_rays(camera, cfg, x, y, ray_id)]
+            with profiling.span("kernel", cuda):
+                out = (trace_oneshot(packed, *rays, ray_id, cfg)
+                       if wavefront is None else
+                       trace_wavefront(packed, *rays, ray_id, cfg,
+                                       wavefront))
+            with profiling.span("reduce", cuda):
+                image = image_of_rays(*out[0], cfg)
+        profiling.count("rays", out[2])
+        if respawn:
+            count_warp_trips(out[1], cfg.width)
+    return image, out[2]
+
+
+def count_warp_trips(cnt: torch.Tensor, width: int) -> None:
+    """While utils/profiling records, the counter "warp_trips" of the
+    respawn kernel's band of rows: its warps' loop trips, which its
+    kIters instantiation counts on the card and respawn_iters_reference
+    gives exactly from the per-pixel counts cnt. The counter keeps cnt and
+    takes the reference when it is read, so the traced frame runs the
+    kernel without kIters and adds no work to the stream."""
+    if profiling.recording():
+        profiling.count("warp_trips",
+                        lambda: respawn_iters_reference(cnt, width))
 
 
 def ray_coords(cfg: RenderConfig, device):

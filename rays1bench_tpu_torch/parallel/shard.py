@@ -37,6 +37,7 @@ kernels/pipeline.py.
 from __future__ import annotations
 
 import dataclasses
+import statistics
 from typing import NamedTuple, Optional
 
 import torch
@@ -44,13 +45,15 @@ import torch.distributed as dist
 
 from rays1bench_tpu_torch.core.config import RenderConfig
 from rays1bench_tpu_torch.kernels import megakernel
-from rays1bench_tpu_torch.kernels.pipeline import (image_of_rays,
+from rays1bench_tpu_torch.kernels.pipeline import (count_warp_trips,
+                                                   image_of_rays,
                                                    prepare_trimmed)
 from rays1bench_tpu_torch.parallel.mesh import layout
 from rays1bench_tpu_torch.render.camera import Camera
 from rays1bench_tpu_torch.render.pipeline import primary_rays, trace_rays
 from rays1bench_tpu_torch.scene.soa_spheres import SphereSOA
 from rays1bench_tpu_torch.scene.spheres import prepare
+from rays1bench_tpu_torch.utils import profiling
 
 
 class Slice(NamedTuple):
@@ -108,7 +111,10 @@ def kernel_local(spheres_soa: SphereSOA, camera: Camera, cfg: RenderConfig,
     respawn the respawn kernel on its band of rows and span of samples. With
     telemetry the kernel's trips too (debug_iters; not with wavefront: the
     phase kernel keeps no counter). cull: "sort_trim" (Morton sort and, with
-    n_real, the power-of-two trim) or "none" (the rows as given)."""
+    n_real, the power-of-two trim) or "none" (the rows as given). Records
+    render_image_megakernel's spans "prepare", "raygen" and "kernel" and
+    counters "rays" and, with respawn, "warp_trips" while utils/profiling
+    records."""
     if respawn and wavefront is not None:
         raise ValueError("respawn and wavefront are alternative scheduling "
                          "strategies")
@@ -119,30 +125,39 @@ def kernel_local(spheres_soa: SphereSOA, camera: Camera, cfg: RenderConfig,
     if cfg.spp % n_samp:
         raise ValueError(f"{n_samp} sample shards do not divide spp "
                          f"{cfg.spp}")
-    packed = _packed(spheres_soa, cull, n_real)
+    cuda = spheres_soa.center_x.is_cuda
+    with profiling.span("prepare", cuda):
+        packed = _packed(spheres_soa, cull, n_real)
+        if respawn:
+            cam = megakernel.pack_camera(camera)
     spp_loc = cfg.spp // n_samp
     if respawn:
         y_lo, y_hi, rpd = band(cfg, n_tiles, i)
-        out = megakernel.trace_respawn(
-            packed, megakernel.pack_camera(camera), cfg,
-            (j * spp_loc, (j + 1) * spp_loc), (y_lo, y_hi),
-            debug_iters=telemetry)
+        with profiling.span("kernel", cuda):
+            out = megakernel.trace_respawn(
+                packed, cam, cfg, (j * spp_loc, (j + 1) * spp_loc),
+                (y_lo, y_hi), debug_iters=telemetry)
         rad = torch.zeros((3, rpd * cfg.width), dtype=torch.float32,
                           device=packed.device)
         rad[:, :(y_hi - y_lo) * cfg.width] = torch.stack(out[0])
-        return Slice(rad, *out[1:])
-    ray_id = ray_slice(cfg, n_tiles, n_samp, i, j, packed.device)
-    pixel = ray_id // cfg.spp
-    rays = [r.contiguous() for r in primary_rays(
-        camera, cfg, (pixel % cfg.width).to(torch.float32),
-        (pixel // cfg.width).to(torch.float32), ray_id)]
-    if wavefront is not None:
-        rad, cnt, total = megakernel.trace_wavefront(packed, *rays, ray_id,
-                                                     cfg, wavefront)
-        return Slice(torch.stack(rad), cnt, total)
-    out = megakernel.trace_oneshot(packed, *rays, ray_id, cfg,
-                                   debug_iters=telemetry)
-    return Slice(torch.stack(out[0]), *out[1:])
+    else:
+        with profiling.span("raygen", cuda):
+            ray_id = ray_slice(cfg, n_tiles, n_samp, i, j, packed.device)
+            pixel = ray_id // cfg.spp
+            rays = [r.contiguous() for r in primary_rays(
+                camera, cfg, (pixel % cfg.width).to(torch.float32),
+                (pixel // cfg.width).to(torch.float32), ray_id)]
+        with profiling.span("kernel", cuda):
+            out = (megakernel.trace_wavefront(packed, *rays, ray_id, cfg,
+                                              wavefront)
+                   if wavefront is not None else
+                   megakernel.trace_oneshot(packed, *rays, ray_id, cfg,
+                                            debug_iters=telemetry))
+        rad = torch.stack(out[0])
+    profiling.count("rays", out[2])
+    if respawn:
+        count_warp_trips(out[1], cfg.width)
+    return Slice(rad, *out[1:])
 
 
 def assemble_rays(parts: torch.Tensor, cfg: RenderConfig, shape):
@@ -306,19 +321,104 @@ def render_image_pallas_sharded(spheres_soa: SphereSOA, camera: Camera,
     package's (slot order), so per-rank values differ from its; their sum
     does not.
 
+    While utils/profiling records, the frame records the spans "frame"
+    and, inside it, "local" (kernel_local's "prepare", "raygen" and
+    "kernel"), "all_reduce", "all_gather", "assemble" and, with telemetry,
+    "telemetry", on the stream too where the scene is on a CUDA device; the
+    counters "rays", "warp_trips" (with respawn) and, with telemetry,
+    "ranks": the gathered rows of RANK_ROW, which carry each rank's times
+    of an earlier frame to every rank's recorder (rank_timings).
+
     Returns (image float32[H, W, 3] on every rank, num_rays int64 0-dim)
     [+ telemetry]."""
     n_tiles, n_samp, i, j = layout(mesh, axis_name, sample_axis)
-    part = kernel_local(spheres_soa, camera, cfg, (n_tiles, n_samp), (i, j),
-                        cull, wavefront, n_real, respawn, telemetry)
-    count = part.rays.clone()
-    dist.all_reduce(count, group=_mesh_group(mesh))
-    parts = all_gather(part.rad, mesh)
-    assemble = assemble_pixels if respawn else assemble_rays
-    image = assemble(parts, cfg, (n_tiles, n_samp))
-    if not telemetry:
-        return image, count
-    per_rank = all_gather(torch.stack([part.rays, part.iters]), mesh)
+    cuda = spheres_soa.center_x.is_cuda
+    with profiling.span("frame", cuda):
+        with profiling.span("local", cuda):
+            part = kernel_local(spheres_soa, camera, cfg, (n_tiles, n_samp),
+                                (i, j), cull, wavefront, n_real, respawn,
+                                telemetry)
+        with profiling.span("all_reduce", cuda):
+            count = part.rays.clone()
+            dist.all_reduce(count, group=_mesh_group(mesh))
+        with profiling.span("all_gather", cuda):
+            parts = all_gather(part.rad, mesh)
+        with profiling.span("assemble", cuda):
+            assemble = assemble_pixels if respawn else assemble_rays
+            image = assemble(parts, cfg, (n_tiles, n_samp))
+        if not telemetry:
+            return image, count
+        with profiling.span("telemetry", cuda):
+            per_rank = all_gather(_rank_row(part), mesh)
+        if profiling.recording():
+            profiling.count("ranks", per_rank)
     shape = tuple(mesh.mesh.shape)
     return image, count, {"device_rays": per_rank[:, 0].reshape(shape),
                           "device_iters": per_rank[:, 1].reshape(shape)}
+
+
+# A rank's row of the telemetry gather: its rays and warp trips in this
+# frame, then, as float64 bits, the id of its oldest frame not sent before
+# whose spans have passed on its stream, that frame's "local" ms and ms
+# from reaching "all_reduce" to the end of "all_gather" (stream ms on a
+# card, host ms on the CPU), and its "frame" span's host ms (the host's
+# issue); -1 in each where there is none or utils/profiling is not
+# recording. Every rank sends a row of one length whether it records or
+# not: the ranks' profiler sessions need not start and stop together.
+RANK_ROW = ("rays", "iters", "frame", "local_ms", "collective_ms",
+            "issue_ms")
+_TIMED = ("frame", "local", "all_reduce", "all_gather")
+
+
+def _rank_row(part: Slice) -> torch.Tensor:
+    row = torch.stack([part.rays, part.iters])
+    done = profiling.completed(_TIMED) if profiling.recording() else None
+    if done is None:
+        ms = torch.full((4,), -1.0, dtype=torch.float64, device=row.device)
+    else:
+        f, sp = done
+        ms = torch.tensor(
+            [float(f), profiling.interval_ms(sp["local"], sp["local"]),
+             profiling.interval_ms(sp["all_reduce"], sp["all_gather"]),
+             sp["frame"].host_ms], dtype=torch.float64)
+        if row.is_cuda:
+            # Pinned and non-blocking: the copy does not wait for the
+            # stream.
+            ms = ms.pin_memory().to(row.device, non_blocking=True)
+    return torch.cat([row, ms.view(torch.int64)])
+
+
+def rank_rows(per_rank: torch.Tensor) -> list:
+    """The telemetry gather's rows (a "ranks" counter of utils/profiling)
+    as one dict of RANK_ROW a rank, in mesh order."""
+    t = per_rank.cpu()
+    return [dict(zip(RANK_ROW, r[:2].tolist()
+                     + r[2:].view(torch.float64).tolist())) for r in t]
+
+
+def rank_timings(st=None) -> dict:
+    """Rank 0's record of the sharded frames, from its "ranks" counters:
+    {frame id: {"busiest": the rank with most warp trips in that frame,
+    "ranks": {rank: {"local_ms", "collective_ms", "issue_ms"}}}} for the
+    frames whose rows arrived (a rank sends a frame's times with a later
+    frame's gather). Read after the caller has synchronised."""
+    iters, times = {}, {}
+    for f, t in profiling.counts("ranks", st):
+        rows = rank_rows(t)
+        iters[f] = max(range(len(rows)), key=lambda r: rows[r]["iters"])
+        for r, row in enumerate(rows):
+            if row["frame"] >= 0:
+                times.setdefault(int(row["frame"]), {})[r] = {
+                    k: row[k] for k in RANK_ROW[3:]}
+    return {f: {"busiest": b, "ranks": times[f]}
+            for f, b in iters.items() if f in times}
+
+
+def busiest_collective_ms(st=None):
+    """The busiest rank's ms from reaching "all_reduce" to the end of
+    "all_gather": the median over the frames whose rows arrived (the
+    ranks' profiler sessions need not start together, so a session's first
+    frame can wait up to the others' start); None where none has."""
+    got = [v["ranks"][v["busiest"]]["collective_ms"]
+           for v in rank_timings(st).values() if v["busiest"] in v["ranks"]]
+    return statistics.median(got) if got else None

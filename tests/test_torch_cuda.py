@@ -730,3 +730,98 @@ def test_sharded_render_in_a_group_of_one(cuda, tmp_path):
         assert torch.equal(img, want) and int(n) == int(n_want)
     finally:
         dist.destroy_process_group()
+
+
+# A span's host interval against the profiler's events (µs), and its
+# stream ms against the kernel's device time (relative).
+SPAN_AXIS_US = 50.0
+SPAN_STREAM_REL = 0.05
+# The spans of a respawn frame (render_image_megakernel).
+FRAME_SPANS = {"frame", "prepare", "kernel", "reduce"}
+
+
+def test_a_span_agrees_with_the_profilers_device_events(cuda):
+    """On the trace's axis (time.time_ns(), the profiler's clock) a span
+    around a respawn launch and synchronize() holds the kernel's launch
+    and its device interval; its stream ms is the kernel's device time;
+    no span is recorded as a device event, there or in a profiled
+    frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rays1bench_tpu_torch.utils import profiling
+
+    cfg = RenderConfig(width=1280, height=720, spp=16, max_bounces=50)
+    s = builders.create_large_scene(cfg.aspect, device=cuda)
+    packed = megakernel.pack_spheres(prepare_trimmed(s.spheres, s.n_real))
+    cam = megakernel.pack_camera(s.camera.build(cuda))
+    megakernel.trace_respawn(packed, cam, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with profiling.span("probe", device=True) as sp:
+            megakernel.trace_respawn(packed, cam, cfg)
+            torch.cuda.synchronize()
+        render_image_megakernel(s.spheres, s.camera.build(cuda), cfg,
+                                n_real=s.n_real)
+        torch.cuda.synchronize()
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    lo, hi = (sp.start_ns - t0) / 1e3, (sp.end_ns - t0) / 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel = min((e for e in dev if "respawn_kernel" in e.name),
+                 key=lambda e: e.time_range.start)
+    launch = max((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.name.startswith(("cudaLaunchKernel",
+                                         "cuLaunchKernel"))
+                  and e.time_range.start <= kernel.time_range.start),
+                 key=lambda e: e.time_range.start)
+    for e in (launch, kernel):
+        assert lo - SPAN_AXIS_US <= e.time_range.start
+        assert e.time_range.end <= hi + SPAN_AXIS_US
+    device_ms = (kernel.time_range.end - kernel.time_range.start) / 1e3
+    assert abs(sp.stream_ms - device_ms) <= SPAN_STREAM_REL * device_ms
+    assert not ({e.name for e in dev} & (FRAME_SPANS | {"probe"}))
+    assert {x.name for x in profiling.spans()} == FRAME_SPANS | {"probe"}
+
+
+def test_sharded_frames_carry_their_times_in_a_group_of_one(cuda,
+                                                            tmp_path):
+    """Recording, a 1-rank NCCL group's telemetry rows carry the rank's
+    stream ms of an earlier frame, taken once its events had passed (the
+    pinned copy and query() path), and the busiest rank's collective ms
+    reads them (their median)."""
+    import statistics
+
+    import torch.distributed as dist
+
+    from rays1bench_tpu_torch.parallel import shard
+    from rays1bench_tpu_torch.parallel.mesh import make_mesh
+    from rays1bench_tpu_torch.utils import profiling
+
+    cfg = RenderConfig(width=64, height=32, spp=4, max_bounces=8)
+    s = builders.create_medium_scene(cfg.aspect, device=cuda)
+    camera = s.camera.build(cuda)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, device=cuda)
+        frame = lambda: shard.render_image_pallas_sharded(
+            s.spheres, camera, cfg, mesh, n_real=s.n_real, respawn=True,
+            telemetry=True)
+        frame()
+        with profiling.session():
+            outs = []
+            for _ in range(4):
+                outs.append(frame())
+                torch.cuda.synchronize()
+        rows = [shard.rank_rows(t)[0] for _, t in profiling.counts("ranks")]
+        assert [r["frame"] for r in rows] == [-1.0, 0.0, 1.0, 2.0]
+        assert [r["iters"] for r in rows] == \
+            [int(o[2]["device_iters"][0]) for o in outs]
+        for r in rows[1:]:
+            assert min(r["local_ms"], r["collective_ms"], r["issue_ms"]) > 0
+        assert shard.busiest_collective_ms() == statistics.median(
+            r["collective_ms"] for r in rows[1:])
+    finally:
+        dist.destroy_process_group()

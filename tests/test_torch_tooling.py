@@ -228,11 +228,11 @@ def test_metrics_match_jax():
 
 
 def test_profiling_on_the_cpu(tmp_path):
-    """trace() writes one Chrome trace holding the annotated span;
+    """trace() writes one Chrome trace holding the recorded span;
     device_memory_stats is None on the CPU, as the JAX version's where the
     backend keeps no stats."""
     with profiling.trace(str(tmp_path / "t")):
-        with profiling.annotate("rays1bench_span"):
+        with profiling.span("rays1bench_span"):
             torch.ones(64).mul(2)
     files = profiling.trace_files(str(tmp_path / "t"))
     assert len(files) == 1 and files[0].endswith(profiling.TRACE_SUFFIX)
@@ -303,6 +303,12 @@ def test_scaling_on_two_gloo_ranks_matches_one_rank_and_jax(tmp_path,
     assert [sum(t["device_rays"]) for t in telems] == \
         [p.num_rays for p in points]
     assert len(telems[1]["device_iters"]) == 2
+    # Each rank's times, from rank 0's recorder: host ms on gloo ranks.
+    for t in telems:
+        for k in scaling.RANK_MS:
+            assert len(t[k]) == len(t["device_rays"])
+            assert all(ms > 0 for ms in t[k])
+        assert all(a < b for a, b in zip(t["local_ms"], t["issue_ms"]))
     effs = metrics.scaling_efficiency(points)
     assert effs[0] == 1.0
     jpoints = jscaling.sweep("small", JConfig(ray_chunk=16384, **kw), [1, 2],
@@ -311,6 +317,7 @@ def test_scaling_on_two_gloo_ranks_matches_one_rank_and_jax(tmp_path,
         assert abs(p.num_rays - j.num_rays) <= RAY_TOL * j.num_rays
     out = capsys.readouterr().out
     assert "gloo CPU ranks" in out and "per-rank trips" in out
+    assert "per-rank collective_ms (median)" in out
     lines = (tmp_path / "sweep.txt").read_text().splitlines()
     assert [ln.split("|")[1] for ln in lines if not ln.startswith("#")] == \
         ["1", "2"]
