@@ -512,8 +512,8 @@ def loader(like, path, drop=0):
     """A ctypes function of the library at path with like's signature, less
     the `drop` arguments before the stream that a parent's launch lacks:
     the backward and phase parents take no counter (1); the one-shot
-    parent no counter and no trip total, the respawn parent no first row
-    and no trip total (2)."""
+    parent no counter and no trip total (2), the respawn parent no first
+    row, no trip total and no block stride (3)."""
     fn = getattr(ctypes.CDLL(path), like.__name__)
     fn.restype = ctypes.c_int
     if drop:
@@ -844,7 +844,7 @@ def main(argv=None):
     soft_medium = RenderConfig(**FIT, seed=medium, soft_silhouette=0.005)
     if "respawn" in libs:
         like = megakernel._respawn_kernel()
-        respawn({n: loader(like, p, 2 if n == "parent" else 0)
+        respawn({n: loader(like, p, 3 if n == "parent" else 0)
                  for n, p in libs["respawn"].items()})
     if "mega_backward" in libs:
         like = mega_backward._backward_kernel()

@@ -45,10 +45,14 @@
 // block in shared memory, and added to the 64-bit total with one atomicAdd
 // per block.
 //
-// Rows: a launch covers the image rows [y_lo, y_hi) (the whole frame, or a
-// device's band of a sharded render) and writes per-pixel outputs of the
-// band, row y_lo first. y_lo is a multiple of the block height, so a band's
-// warps are the whole frame's warps.
+// Rows: a launch covers a set of the frame's 8-row block-rows: from the one
+// at y_lo, every stride-th, each cut at y_hi (stride 1: the rows [y_lo,
+// y_hi), the whole frame or a band; stride n: a rank of a sharded render
+// over n, which holds a cross-section of the frame so that the ranks' work
+// is balanced). Block (bx, by) of the grid covers block-row y_lo / 8 + by *
+// stride, and the outputs hold the set's pixels in image order, compactly:
+// block by's rows start at output row 8 * by. y_lo is a multiple of the
+// block height, so a set's warps are the whole frame's warps.
 //
 // Trips (kIters, the Pallas kernel's debug_iters): a warp's serial work is
 // the trips of its flat loop, which it runs as long as its busiest lane, and
@@ -77,7 +81,7 @@ respawn_kernel(const float* __restrict__ spheres, int S,
                float* __restrict__ rr_out, float* __restrict__ rg_out,
                float* __restrict__ rb_out, int* __restrict__ cnt_out,
                unsigned long long* __restrict__ total, int y_lo,
-               unsigned long long* __restrict__ iters) {
+               unsigned long long* __restrict__ iters, int stride) {
   extern __shared__ float4 hot[];  // (S) float4, then (3, S) payload
   float* pay = reinterpret_cast<float*>(hot + S);
   __shared__ float cam[19];
@@ -91,9 +95,9 @@ respawn_kernel(const float* __restrict__ spheres, int S,
   const int lane = tid & 31, warp = tid >> 5;
   const int x = blockIdx.x * kBlockX + (warp % kWarpsX) * kWarpW +
                 lane % kWarpW;
-  const int row = blockIdx.y * kBlockY + (warp / kWarpsX) * kWarpH +
-                  lane / kWarpW;
-  const int y = y_lo + row;
+  const int in_block = (warp / kWarpsX) * kWarpH + lane / kWarpW;
+  const int row = blockIdx.y * kBlockY + in_block;  // of the outputs
+  const int y = y_lo + blockIdx.y * stride * kBlockY + in_block;
   int cnt = 0;
   if (x < width && y < y_hi) {
     const int pid = y * width + x;
@@ -126,26 +130,28 @@ respawn_kernel(const float* __restrict__ spheres, int S,
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the attribute call or the
-// launch (0 on success). Traces the rows [y_lo, y_hi) (0 <= y_lo < y_hi, y_lo
-// a multiple of 8) of a frame of width pixels; inv_h is 1 / the frame's
-// height. Outputs are per pixel of the band in image order; *total must be
-// zero on entry. iters: null, or a zeroed 64-bit word that receives the
-// warps' loop trips (the kIters instantiation).
+// launch (0 on success). Traces the block-rows from y_lo every stride-th,
+// cut at y_hi (0 <= y_lo < y_hi, y_lo a multiple of 8, stride >= 1), of a
+// frame of width pixels; inv_h is 1 / the frame's height. Outputs are per
+// pixel of the set in image order; *total must be zero on entry. iters:
+// null, or a zeroed 64-bit word that receives the warps' loop trips (the
+// kIters instantiation).
 extern "C" int rays1_respawn_launch(
     const float* spheres, int S, const float* cam, int width, int y_hi,
     int spp, int s_lo, int s_hi, int max_bounces, float t_min, uint32_t seed,
     float inv_w, float inv_h, float* rr, float* rg, float* rb, int* cnt,
     unsigned long long* total, int y_lo, unsigned long long* iters,
-    void* stream) {
+    int stride, void* stream) {
   auto kernel = iters ? respawn_kernel<true> : respawn_kernel<false>;
   const size_t smem = sizeof(float) * r1b::kNumRows * (size_t)S;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  const int block_rows = (y_hi - y_lo + kBlockY - 1) / kBlockY;
   const dim3 grid((width + kBlockX - 1) / kBlockX,
-                  (y_hi - y_lo + kBlockY - 1) / kBlockY);
+                  (block_rows + stride - 1) / stride);
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       spheres, S, cam, width, y_hi, spp, s_lo, s_hi, max_bounces, t_min,
-      seed, inv_w, inv_h, rr, rg, rb, cnt, total, y_lo, iters);
+      seed, inv_w, inv_h, rr, rg, rb, cnt, total, y_lo, iters, stride);
   return (int)cudaGetLastError();
 }

@@ -300,21 +300,32 @@ def trace_respawn_reference(packed: torch.Tensor, cam: torch.Tensor, pid, x,
 
 
 def _rows(cfg: RenderConfig, rows):
-    y_lo, y_hi = (0, cfg.height) if rows is None else rows
-    if not (0 <= y_lo <= y_hi <= cfg.height
+    rows = (0, cfg.height) if rows is None else tuple(rows)
+    y_lo, y_hi, stride = rows + (1,) if len(rows) == 2 else rows
+    if not (0 <= y_lo <= y_hi <= cfg.height and stride >= 1
             and (y_lo % BLOCK_ROWS == 0 or y_lo == y_hi)):
         raise ValueError(f"rows {rows}: a band [y_lo, y_hi) of [0, "
                          f"{cfg.height}] starting at a multiple of "
-                         f"{BLOCK_ROWS}")
-    return y_lo, y_hi
+                         f"{BLOCK_ROWS}, and a block stride of 1 or more")
+    return y_lo, y_hi, stride
+
+
+def block_rows(cfg: RenderConfig, rows=None) -> torch.Tensor:
+    """The image rows (int64, in image order) that trace_respawn's `rows`
+    covers: of the BLOCK_ROWS-row block-rows from y_lo, every stride-th,
+    each cut at y_hi. Its outputs hold these rows' pixels in this order."""
+    y_lo, y_hi, stride = _rows(cfg, rows)
+    y = torch.arange(y_lo, y_hi)
+    return y[(y - y_lo) // BLOCK_ROWS % stride == 0]
 
 
 def respawn_iters_reference(cnt: torch.Tensor, width: int) -> torch.Tensor:
     """Plain version of the respawn kernel's trip count: cnt, the
-    per-pixel counts of a band of whole rows in image order (a frame, or a
-    band starting at a multiple of BLOCK_ROWS rows), cut into the kernel's
-    8x4-pixel warps; each warp runs as long as its busiest pixel. Returns
-    the sum over warps of their largest count (int64 0-dim)."""
+    per-pixel counts of whole rows in image order (a frame, or the outputs
+    of trace_respawn's `rows`, whole BLOCK_ROWS-row blocks but for the
+    last), cut into the kernel's 8x4-pixel warps; each warp runs as long
+    as its busiest pixel. Returns the sum over warps of their largest
+    count (int64 0-dim)."""
     ww, wh = WARP_PIXELS
     c = cnt.reshape(-1, width).to(torch.int64)
     c = torch.nn.functional.pad(c, (0, -width % ww, 0, -c.shape[0] % wh))
@@ -359,7 +370,7 @@ def _respawn_kernel():
     fn = lib.rays1_respawn_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, i, p, i, i, i, i, i, i, f, ctypes.c_uint32, f, f,
-                   p, p, p, p, p, i, p, p]
+                   p, p, p, p, p, i, p, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -367,21 +378,24 @@ def _respawn_kernel():
 def trace_respawn(packed: torch.Tensor, cam: torch.Tensor,
                   cfg: RenderConfig, sample_span=None, rows=None,
                   debug_iters: bool = False):
-    """Trace every sample of every pixel of cfg's image, or of a band of
+    """Trace every sample of every pixel of cfg's image, or of a set of
     its rows.
 
     packed: float32 (7, S) from pack_spheres; cam: float32 (19,) from
     pack_camera; both on one device. sample_span: optional (s_lo, s_hi)
     slice of [0, spp). rows: optional (y_lo, y_hi) band of image rows, y_lo
-    a multiple of BLOCK_ROWS (a sharded render's pixel band); default all.
+    a multiple of BLOCK_ROWS, or (y_lo, y_hi, stride): of the band's
+    BLOCK_ROWS-row block-rows every stride-th, from the first (a sharded
+    render's rank, parallel/shard.band); default all. block_rows gives the
+    rows a set covers.
 
-    Returns ((rr, rg, rb) float32[P] per-pixel sample sums of the band's P
+    Returns ((rr, rg, rb) float32[P] per-pixel sample sums of the set's P
     pixels in image order, row y_lo first (row 0 = bottom); cnt int32[P]
     rays traced per pixel; total int64 0-dim tensor, the ray count), and
     with debug_iters the warps' loop trips summed (int64 0-dim; the
     kernel's kIters instantiation, respawn_iters_reference on the CPU).
     CUDA tensors launch the kernel of csrc/respawn.cu on the current stream
-    (none for an empty band); CPU tensors run trace_respawn_reference."""
+    (none for an empty set); CPU tensors run trace_respawn_reference."""
     global LAUNCHES, RESPAWN_ITERS_LAUNCHES
     hard_only(cfg, "respawn")
     device = packed.device
@@ -390,12 +404,14 @@ def trace_respawn(packed: torch.Tensor, cam: torch.Tensor,
                  device)
     check_tensor("cam", cam, torch.float32, (CAMERA_FLOATS,), device)
     s_lo, s_hi = _span(cfg, sample_span)
-    y_lo, y_hi = _rows(cfg, rows)
-    npix = (y_hi - y_lo) * cfg.width
+    y_lo, y_hi, stride = _rows(cfg, rows)
+    # block_rows' count in integers: no tensor op on the launch's path.
+    npix = cfg.width * sum(min(BLOCK_ROWS, y_hi - b) for b in range(
+        y_lo, y_hi, stride * BLOCK_ROWS))
 
     if device.type == "cpu":
-        pid = torch.arange(y_lo * cfg.width, y_hi * cfg.width,
-                           dtype=torch.int32)
+        pid = (block_rows(cfg, rows)[:, None] * cfg.width
+               + torch.arange(cfg.width)).reshape(-1).to(torch.int32)
         x = (pid % cfg.width).to(torch.float32)
         y = (pid // cfg.width).to(torch.float32)
         rad, cnt = trace_respawn_reference(packed, cam, pid, x, y, cfg,
@@ -421,7 +437,7 @@ def trace_respawn(packed: torch.Tensor, cam: torch.Tensor,
             cfg.spp, s_lo, s_hi, cfg.max_bounces, cfg.t_min, cfg.seed,
             1.0 / cfg.width, 1.0 / cfg.height, rr.data_ptr(), rg.data_ptr(),
             rb.data_ptr(), cnt.data_ptr(), scratch.data_ptr(), y_lo,
-            scratch.data_ptr() + 8 if debug_iters else None,
+            scratch.data_ptr() + 8 if debug_iters else None, stride,
             torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"respawn kernel launch failed: cudaError "

@@ -134,11 +134,12 @@ def render_image_megakernel(spheres_soa: SphereSOA, camera: Camera,
 
 def count_warp_trips(cnt: torch.Tensor, width: int) -> None:
     """While utils/profiling records, the counter "warp_trips" of the
-    respawn kernel's band of rows: its warps' loop trips, which its
-    kIters instantiation counts on the card and respawn_iters_reference
-    gives exactly from the per-pixel counts cnt. The counter keeps cnt and
-    takes the reference when it is read, so the traced frame runs the
-    kernel without kIters and adds no work to the stream."""
+    respawn kernel's rows (a frame, or a rank's blocks of rows,
+    parallel/shard.band): its warps' loop trips, which its kIters
+    instantiation counts on the card and respawn_iters_reference gives
+    exactly from the per-pixel counts cnt. The counter keeps cnt and takes
+    the reference when it is read, so the traced frame runs the kernel
+    without kIters and adds no work to the stream."""
     if profiling.recording():
         profiling.count("warp_trips",
                         lambda: respawn_iters_reference(cnt, width))

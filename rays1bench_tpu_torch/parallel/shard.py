@@ -19,14 +19,17 @@ Slices (ray_slice, band): a rank at (tile i, sample j) of an (n_tiles,
 n_samples) mesh traces the pixels [i * ppd, (i + 1) * ppd), ppd =
 ceil(H * W / n_tiles), and of each pixel the samples [j * spp / n_samples,
 (j + 1) * spp / n_samples), in ray-id order; ids past the frame are
-padding, never traced or counted. The respawn engine's rank traces the
-image rows [i * rpd, (i + 1) * rpd) instead, rpd = ceil(H / n_tiles)
-rounded up to the respawn kernel's block height (8 rows), so its warps are
-the single-device frame's warps. The stateless RNG keys on global ray ids,
-so per-ray results, and the one-shot and wavefront images, are the
-single-device port's bit for bit on any mesh; the respawn image is on a
-mesh of tiles alone, and on a 2-D mesh differs only in the order of the
-sample sums (each rank sums its span, then the spans are added in order).
+padding, never traced or counted. The respawn engine's rank traces whole
+blocks of the respawn kernel's 8 rows instead, interleaved: block-rows i,
+i + n_tiles, i + 2 n_tiles, ..., so that its warps are the single-device
+frame's warps and each rank holds a cross-section of the frame, sky and
+crowded horizon alike, which balances the ranks' work. Ranks hold
+ceil(ceil(H / 8) / n_tiles) blocks, or one fewer, and pad to the former.
+The stateless RNG keys on global ray ids, so per-ray results, and the
+one-shot and wavefront images, are the single-device port's bit for bit
+on any mesh; the respawn image is on a mesh of tiles alone, and on a 2-D
+mesh differs only in the order of the sample sums (each rank sums its
+span, then the spans are added in order).
 
 Dropped TPU arguments: `tile_rays`, `unroll`, `sync_every` and `interpret`
 (Mosaic and VPU knobs, and Pallas' CPU mode: the port's CPU path is the
@@ -61,7 +64,7 @@ class Slice(NamedTuple):
     rad: torch.Tensor      # float32 (3, per): per-ray radiance, or per-pixel
                            # sample sums (respawn), padded to the mesh's size
     cnt: Optional[torch.Tensor]  # int32: rays traced per ray of the slice,
-                           # or per pixel of the band (respawn; unpadded);
+                           # or per pixel of the blocks (respawn; unpadded);
                            # None for the plain renderer
     rays: torch.Tensor     # int64 0-dim: rays traced
     iters: Optional[torch.Tensor] = None  # int64 0-dim: warp trips (telemetry)
@@ -83,13 +86,14 @@ def ray_slice(cfg: RenderConfig, n_tiles: int, n_samp: int, i: int, j: int,
 
 
 def band(cfg: RenderConfig, n_tiles: int, i: int):
-    """(y_lo, y_hi, rows per rank): the image rows of tile i in the respawn
-    engine's split, whole kernel blocks of megakernel.BLOCK_ROWS rows."""
+    """(rows, rows per rank): tile i's part of the respawn engine's split,
+    the rows= of megakernel.trace_respawn that takes every n_tiles-th
+    block-row of megakernel.BLOCK_ROWS rows from block-row i, and the rows
+    every rank pads its part to (ceil(block-rows / n_tiles) blocks)."""
     b = megakernel.BLOCK_ROWS
-    rows = -(-cfg.height // n_tiles)
-    rpd = -(-rows // b) * b
-    y_lo = min(i * rpd, cfg.height)
-    return y_lo, min(y_lo + rpd, cfg.height), rpd
+    blocks = -(-cfg.height // b)
+    return ((min(i * b, cfg.height), cfg.height, n_tiles),
+            -(-blocks // n_tiles) * b)
 
 
 def _packed(spheres_soa: SphereSOA, cull: str, n_real):
@@ -108,10 +112,11 @@ def kernel_local(spheres_soa: SphereSOA, camera: Camera, cfg: RenderConfig,
     of `shape` = (n_tiles, n_samples): the one-shot kernel
     (megakernel.trace_oneshot) on the rank's ray slice, or with wavefront
     the wavefront engine on it (compaction local to the rank), or with
-    respawn the respawn kernel on its band of rows and span of samples. With
-    telemetry the kernel's trips too (debug_iters; not with wavefront: the
-    phase kernel keeps no counter). cull: "sort_trim" (Morton sort and, with
-    n_real, the power-of-two trim) or "none" (the rows as given). Records
+    respawn the respawn kernel on its blocks of rows (band) and span of
+    samples. With telemetry the kernel's trips too (debug_iters; not with
+    wavefront: the phase kernel keeps no counter). cull: "sort_trim"
+    (Morton sort and, with n_real, the power-of-two trim) or "none" (the
+    rows as given). Records
     render_image_megakernel's spans "prepare", "raygen" and "kernel" and
     counters "rays" and, with respawn, "warp_trips" while utils/profiling
     records."""
@@ -132,14 +137,14 @@ def kernel_local(spheres_soa: SphereSOA, camera: Camera, cfg: RenderConfig,
             cam = megakernel.pack_camera(camera)
     spp_loc = cfg.spp // n_samp
     if respawn:
-        y_lo, y_hi, rpd = band(cfg, n_tiles, i)
+        rows, per = band(cfg, n_tiles, i)
         with profiling.span("kernel", cuda):
             out = megakernel.trace_respawn(
-                packed, cam, cfg, (j * spp_loc, (j + 1) * spp_loc),
-                (y_lo, y_hi), debug_iters=telemetry)
-        rad = torch.zeros((3, rpd * cfg.width), dtype=torch.float32,
+                packed, cam, cfg, (j * spp_loc, (j + 1) * spp_loc), rows,
+                debug_iters=telemetry)
+        rad = torch.zeros((3, per * cfg.width), dtype=torch.float32,
                           device=packed.device)
-        rad[:, :(y_hi - y_lo) * cfg.width] = torch.stack(out[0])
+        rad[:, :out[1].numel()] = torch.stack(out[0])
     else:
         with profiling.span("raygen", cuda):
             ray_id = ray_slice(cfg, n_tiles, n_samp, i, j, packed.device)
@@ -175,14 +180,16 @@ def assemble_rays(parts: torch.Tensor, cfg: RenderConfig, shape):
 def assemble_pixels(parts: torch.Tensor, cfg: RenderConfig, shape):
     """The respawn engine's image from every rank's per-pixel sample sums,
     parts float32 (ranks, 3, per) in mesh order: each pixel's spans added
-    in sample order, the bands stacked, then the sums times 1/spp as
-    render_image_megakernel takes them."""
+    in sample order, the tiles' blocks put back in image order (block-row
+    k * n_tiles + i is tile i's k-th, band) and the padding cropped, then
+    the sums times 1/spp as render_image_megakernel takes them."""
     n_tiles, n_samp = shape
-    a = parts.reshape(n_tiles, n_samp, 3, -1)
+    a = parts.reshape(n_tiles, n_samp, 3, -1,
+                      megakernel.BLOCK_ROWS * cfg.width)
     acc = a[:, 0]
     for j in range(1, n_samp):
         acc = acc + a[:, j]
-    rr, rg, rb = acc.permute(1, 0, 2).reshape(3, -1)[:, :cfg.num_pixels]
+    rr, rg, rb = acc.permute(1, 2, 0, 3).reshape(3, -1)[:, :cfg.num_pixels]
     rad = torch.stack([rr, rg, rb], dim=-1).reshape(cfg.height, cfg.width, 3)
     return rad * (1.0 / cfg.spp)
 
@@ -309,9 +316,10 @@ def render_image_pallas_sharded(spheres_soa: SphereSOA, camera: Camera,
 
     Engines, as render_image_megakernel: the one-shot kernel by default,
     wavefront= a schedule of bounces per phase (compaction local to each
-    rank), respawn=True the respawn kernel on pixel bands. sample_axis:
-    the second axis of a 2-D mesh, splitting each pixel's samples (needs
-    mesh.size(1) | spp). cull, n_real: kernel_local.
+    rank), respawn=True the respawn kernel on interleaved blocks of rows
+    (band). sample_axis: the second axis of a 2-D mesh, splitting each
+    pixel's samples (needs mesh.size(1) | spp). cull, n_real:
+    kernel_local.
 
     telemetry: additionally return a third element, {"device_rays":
     rays traced by each rank, "device_iters": the warps' loop trips of

@@ -668,25 +668,40 @@ def test_oneshot_trips(cuda, scene, soft):
         assert int(iters) >= plain and 32 * int(iters) >= int(total)
 
 
-def test_respawn_band_equals_rows_of_the_frame(cuda):
-    """Bands of 8-row blocks give the whole frame's rows bit for bit, and
-    their trips sum to the frame's (each band's warps are the frame's)."""
+@pytest.mark.parametrize("sets", [
+    ((0, 8), (8, 24), (24, 30), (30, 30)),              # contiguous bands
+    ((0, 30, 2), (8, 30, 2)),                           # 2 ranks
+    ((0, 30, 3), (8, 30, 3), (16, 30, 3)),              # 3 ranks, ragged
+    ((0, 30, 4), (8, 30, 4), (16, 30, 4), (24, 30, 4)),  # 4 ranks
+    ((30, 30, 8), (0, 20, 2)),                          # empty; cut at y_hi
+], ids=["bands", "stride2", "stride3", "stride4", "cut"])
+def test_respawn_band_equals_rows_of_the_frame(cuda, sets):
+    """Sets of 8-row blocks, contiguous bands or every stride-th block
+    (a rank of the sharded split), give those rows of the whole frame bit
+    for bit in image order, and the trips of a split's sets sum to the
+    frame's (each set's warps are the frame's)."""
     cfg = RenderConfig(width=50, height=30, spp=3, max_bounces=6)
     s = builders.create_medium_scene(cfg.aspect, device=cuda)
     packed = megakernel.pack_spheres(prepare_trimmed(s.spheres, s.n_real))
     cam = megakernel.pack_camera(s.camera.build(cuda))
     rad, cnt, total, iters = megakernel.trace_respawn(packed, cam, cfg,
                                                       debug_iters=True)
-    trips = 0
-    for lo, hi in ((0, 8), (8, 24), (24, 30), (30, 30)):
+    trips, traced = 0, []
+    for rows in sets:
         b_rad, b_cnt, b_total, b_iters = megakernel.trace_respawn(
-            packed, cam, cfg, rows=(lo, hi), debug_iters=True)
-        sl = slice(lo * cfg.width, hi * cfg.width)
-        assert torch.equal(b_cnt, cnt[sl])
-        assert all(torch.equal(a, b[sl]) for a, b in zip(b_rad, rad))
-        assert int(b_total) == int(cnt[sl].sum())
+            packed, cam, cfg, rows=rows, debug_iters=True)
+        ys = megakernel.block_rows(cfg, rows).to(cuda)
+        pix = (ys[:, None] * cfg.width
+               + torch.arange(cfg.width, device=cuda)).reshape(-1)
+        assert torch.equal(b_cnt, cnt[pix]), rows
+        assert all(torch.equal(a, b[pix]) for a, b in zip(b_rad, rad)), rows
+        assert int(b_total) == int(cnt[pix].sum())
+        assert int(b_iters) == int(megakernel.respawn_iters_reference(
+            b_cnt, cfg.width))
         trips += int(b_iters)
-    assert trips == int(iters)
+        traced += ys.tolist()
+    if sorted(traced) == list(range(cfg.height)):
+        assert trips == int(iters)
 
 
 def test_sharded_render_in_a_group_of_one(cuda, tmp_path):

@@ -22,8 +22,11 @@ Tolerances:
   (tests/test_shard.py:193). The per-rank split differs from JAX's (the
   port drops the slot permutation), so only sums are compared with JAX's.
   The respawn kernel's trips over a tile mesh sum to the single-device
-  count (its bands are whole 8-row blocks), and so do the one-shot
-  kernel's here (each rank's 576 rays are whole warps of 32).
+  count (each rank holds whole 8-row blocks, every n_tiles-th), and so do
+  the one-shot kernel's here (each rank's 576 rays are whole warps of 32).
+  The interleaved split is also held, in one process, over every
+  coordinate of a 4x1 and a 2x2 mesh on a frame of 44 rows (a ragged last
+  block, ranks of 2, 2, 1 and 1 blocks).
 """
 
 import numpy as np
@@ -220,21 +223,103 @@ def test_trip_references_on_known_counts():
     assert int(megakernel.oneshot_iters_reference(rays, 16)) == 2
 
 
-def test_band_of_rows_equals_those_rows_of_the_frame(scene):
+@pytest.fixture(scope="module")
+def tables(scene):
     s, cam = scene
-    packed = pack_spheres(prepare_trimmed(s.spheres, s.n_real))
-    pc = pack_camera(cam)
-    (rr, rg, rb), cnt, total = megakernel.trace_respawn(packed, pc, CFG)
-    (br, bg, bb), bcnt, btotal = megakernel.trace_respawn(packed, pc, CFG,
-                                                          rows=(8, 20))
-    lo, hi = 8 * CFG.width, 20 * CFG.width
-    assert torch.equal(br, rr[lo:hi]) and torch.equal(bcnt, cnt[lo:hi])
-    assert int(btotal) == int(cnt[lo:hi].sum())
-    for bad in ((4, 20), (8, 25), (16, 8)):
+    return pack_spheres(prepare_trimmed(s.spheres, s.n_real)), pack_camera(cam)
+
+
+@pytest.fixture(scope="module")
+def respawn_frame(tables):
+    return megakernel.trace_respawn(*tables, CFG, debug_iters=True)
+
+
+# rows= of trace_respawn on CFG's 24 rows (3 blocks of 8): contiguous bands
+# (one ending inside a block, one empty) and strided sets of blocks.
+BLOCK_SETS = [(8, 20), (24, 24), (0, 24, 2), (8, 24, 2), (0, 20, 2),
+              (16, 24, 3), (8, 24, 4)]
+MALFORMED = [(4, 20), (8, 25), (16, 8), (0, 24, 0), (4, 24, 2),
+             (8, 24, -1)]
+
+
+@pytest.mark.parametrize("rows", BLOCK_SETS + [
+    pytest.param(r, id=f"malformed{r}") for r in MALFORMED])
+def test_band_of_rows_equals_those_rows_of_the_frame(tables, respawn_frame,
+                                                     rows):
+    """A set of whole 8-row blocks (every stride-th from y_lo, cut at
+    y_hi) gives those rows of the frame bit for bit, in image order, and
+    their count and trips; a malformed set raises."""
+    if rows in MALFORMED:
         with pytest.raises(ValueError, match="band"):
-            megakernel.trace_respawn(packed, pc, CFG, rows=bad)
-    empty = megakernel.trace_respawn(packed, pc, CFG, rows=(24, 24))
-    assert empty[1].numel() == 0 and int(empty[2]) == 0
+            megakernel.trace_respawn(*tables, CFG, rows=rows)
+        return
+    (rr, rg, rb), cnt, _, _ = respawn_frame
+    (br, bg, bb), bcnt, btotal, biters = megakernel.trace_respawn(
+        *tables, CFG, rows=rows, debug_iters=True)
+    ys = megakernel.block_rows(CFG, rows)
+    y_lo, y_hi = rows[:2]
+    stride = rows[2] if len(rows) == 3 else 1
+    assert ys.tolist() == [y for y in range(y_lo, y_hi)
+                           if (y - y_lo) // 8 % stride == 0]
+    pix = (ys[:, None] * CFG.width + torch.arange(CFG.width)).reshape(-1)
+    assert all(torch.equal(a, b[pix]) for a, b in zip((br, bg, bb),
+                                                      (rr, rg, rb)))
+    assert torch.equal(bcnt, cnt[pix])
+    assert int(btotal) == int(cnt[pix].sum())
+    assert int(biters) == int(megakernel.respawn_iters_reference(
+        cnt.reshape(-1, CFG.width)[ys], CFG.width))
+
+
+# A frame of 44 rows: 6 blocks, the last one 4 rows; 4 ranks hold 2, 2, 1
+# and 1 of them.
+SPLIT_CFG = RenderConfig(width=24, height=44, spp=4, max_bounces=4)
+
+
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)], ids=["4x1", "2x2"])
+def test_interleaved_split_over_every_coordinate(scene, tables, shape):
+    """kernel_local's respawn engine on every coordinate of the mesh, then
+    assemble_pixels: the single-device frame bit for bit (on the 2-D mesh
+    the frame's sample spans added in the same order), its count and its
+    trips; every block-row traced by one tile, every tile within one block
+    of the others, and no padding row traced or counted."""
+    s, cam = scene
+    cfg, (n_tiles, n_samp) = SPLIT_CFG, shape
+    coords = [(i, j) for i in range(n_tiles) for j in range(n_samp)]
+    parts = [shard.kernel_local(s.spheres, cam, cfg, shape, c,
+                                n_real=s.n_real, respawn=True,
+                                telemetry=True) for c in coords]
+    img = shard.assemble_pixels(torch.stack([p.rad for p in parts]), cfg,
+                                shape)
+    spp_loc = cfg.spp // n_samp
+    spans = [megakernel.trace_respawn(*tables, cfg,
+                                      (j * spp_loc, (j + 1) * spp_loc),
+                                      debug_iters=True)
+             for j in range(n_samp)]
+    acc = torch.stack(spans[0][0])
+    for span in spans[1:]:
+        acc = acc + torch.stack(span[0])
+    want = (acc.t() * (1.0 / cfg.spp)).reshape(cfg.height, cfg.width, 3)
+    assert torch.equal(img, want)
+    if n_samp == 1:
+        ref, _ = megakernel_ref(scene, cfg, respawn=True)
+        assert torch.equal(img, ref)
+    assert sum(int(p.rays) for p in parts) == sum(int(t[2]) for t in spans)
+    assert sum(int(p.iters) for p in parts) == sum(int(t[3]) for t in spans)
+    assert all(int(p.iters) == int(megakernel.respawn_iters_reference(
+        p.cnt, cfg.width)) for p in parts)
+    rows = [megakernel.block_rows(cfg, shard.band(cfg, n_tiles, i)[0])
+            for i in range(n_tiles)]
+    blocks = [sorted({y // 8 for y in r.tolist()}) for r in rows]
+    assert sorted(b for bs in blocks for b in bs) == list(range(6))
+    assert max(map(len, blocks)) - min(map(len, blocks)) <= 1
+    assert torch.equal(torch.cat(rows).sort().values,
+                       torch.arange(cfg.height))
+    per = shard.band(cfg, n_tiles, 0)[1]
+    for (i, j), p in zip(coords, parts):
+        real = len(rows[i]) * cfg.width
+        assert p.cnt.numel() == real and int(p.cnt.sum()) == int(p.rays)
+        assert p.rad.shape == (3, per * cfg.width)
+        assert not p.rad[:, real:].any()
 
 
 def test_wavefront_refuses_telemetry(scene):
