@@ -113,21 +113,23 @@ def _pick_engine(spheres: SphereSOA, cfg: RenderConfig, engine: str) -> str:
 
 
 def render_for_loss(spheres: SphereSOA, camera: Camera, cfg: RenderConfig,
-                    mesh=None, engine: str = "auto") -> torch.Tensor:
+                    mesh=None, engine: str = "auto", with_total: bool = False):
     """Differentiable linear-radiance render. Through "mega" its value comes
     from the topology kernel, whose albedos are 8-bit
     (megakernel.pack_spheres); through "pipeline" the albedos are exact.
     Render the target through the same engine. With a mesh (its 1-D
     "rays" axis) the render is sharded over its ranks and whole on every
-    rank."""
+    rank. Returns the image, or with with_total (image, the render's ray
+    total: an int64 0-dim tensor on the render's device, on "mega" the
+    topology kernel's own count)."""
     mega = _pick_engine(spheres, cfg, engine) == "mega"
     if mesh is not None:
         render = render_image_mega_sharded if mega else render_image_sharded
-        img, _ = render(spheres, camera, _grad_cfg(cfg), mesh)
+        img, total = render(spheres, camera, _grad_cfg(cfg), mesh)
     else:
         render = render_image_mega if mega else render_image
-        img, _ = render(spheres, camera, _grad_cfg(cfg))
-    return img
+        img, total = render(spheres, camera, _grad_cfg(cfg))
+    return (img, total) if with_total else img
 
 
 def image_loss(params: Dict[str, torch.Tensor], spheres: SphereSOA,
@@ -168,11 +170,18 @@ def make_train_step(spheres_template: SphereSOA, camera: Camera,
                     engine: str = "auto"):
     """Build (step, optimizer) over the parameter dict, whose tensors the
     step updates in place. step(target) -> the loss before the update (a
-    0-dim tensor). While utils/profiling records, a step records the span
-    "step" and, inside it, "forward" (two renders under soft silhouettes),
-    "loss", "backward" and "adam", on the stream too on a CUDA device. Row
-    masks zero the gradient of rows outside inv.rows / inv.rows_by before
-    Adam sees it, as the JAX step does."""
+    0-dim tensor). step.rays is the last step's ray total (None before the
+    first): the forward's int64 0-dim tensor on the step's device (the sum
+    of both renders' under soft silhouettes), never read to the host here,
+    so that a caller can sum it over steps and read the sum once. While
+    utils/profiling records, a step records the span "step" and, inside
+    it, "forward" (two renders under soft silhouettes; on "mega" each
+    render's "prepare", "raygen", "kernel" and "reduce",
+    kernels/pipeline.render_image_topology), "loss", "backward" (on "mega"
+    kernel B's "backward_kernel", grad/mega._Fused) and "adam", on the
+    stream too on a CUDA device, and the counter "rays", the step's ray
+    total. Row masks zero the gradient of rows outside inv.rows /
+    inv.rows_by before Adam sees it, as the JAX step does."""
     optimizer = torch.optim.Adam(list(params.values()),
                                  lr=inv.learning_rate, eps=1e-8)
     n_rows = spheres_template.count
@@ -196,8 +205,12 @@ def make_train_step(spheres_template: SphereSOA, camera: Camera,
             optimizer.zero_grad(set_to_none=True)
             with profiling.span("forward", cuda):
                 spheres = with_params(spheres_template, params)
-                imgs = [render_for_loss(spheres, camera, c, mesh, engine)
-                        for c in _loss_cfgs(cfg)]
+                imgs, totals = zip(*(
+                    render_for_loss(spheres, camera, c, mesh, engine,
+                                    with_total=True)
+                    for c in _loss_cfgs(cfg)))
+                rays = sum(totals[1:], totals[0])
+                profiling.count("rays", rays)
             with profiling.span("loss", cuda):
                 loss = _loss_of(imgs, target)
             with profiling.span("backward", cuda):
@@ -206,8 +219,10 @@ def make_train_step(spheres_template: SphereSOA, camera: Camera,
                     params[name].grad.mul_(m)
             with profiling.span("adam", cuda):
                 optimizer.step()
+        step.rays = rays
         return loss.detach()
 
+    step.rays = None
     return step, optimizer
 
 

@@ -53,6 +53,7 @@ from rays1bench_tpu_torch.render.camera import Camera
 from rays1bench_tpu_torch.render.pipeline import primary_rays, render_image
 from rays1bench_tpu_torch.scene.soa_spheres import SphereSOA
 from rays1bench_tpu_torch.scene.spheres import PreparedSpheres, prepare
+from rays1bench_tpu_torch.utils import profiling
 
 _PREP_FIELDS = tuple(f.name for f in dataclasses.fields(PreparedSpheres))
 _CAM_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
@@ -60,7 +61,9 @@ _CAM_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
 
 class _Fused(torch.autograd.Function):
     """Topology kernel forward, fused kernel backward, over the prepared
-    sphere columns and the primary rays."""
+    sphere columns and the primary rays. While utils/profiling records,
+    the backward's launch of kernel B records the span "backward_kernel"
+    (on the stream too on a CUDA device)."""
 
     @staticmethod
     def forward(ctx, cfg, ray_id, *tensors):
@@ -78,9 +81,10 @@ class _Fused(torch.autograd.Function):
         ray_id, topo, *tensors = ctx.saved_tensors
         prep = PreparedSpheres(*tensors[:len(_PREP_FIELDS)])
         rays = tensors[len(_PREP_FIELDS):]
-        grads, ray_cts = mega_backward.backward(
-            prep, *rays, ray_id, ct_r.contiguous(), ct_g.contiguous(),
-            ct_b.contiguous(), topo, ctx.cfg)
+        ct_r, ct_g, ct_b = (c.contiguous() for c in (ct_r, ct_g, ct_b))
+        with profiling.span("backward_kernel", ct_r.is_cuda):
+            grads, ray_cts = mega_backward.backward(
+                prep, *rays, ray_id, ct_r, ct_g, ct_b, topo, ctx.cfg)
         by_name = dict(zip(mega_backward.GRAD_ROWS, grads))
         prep_cts = tuple(by_name.get(name) for name in _PREP_FIELDS)
         return (None, None) + prep_cts + tuple(ray_cts)

@@ -177,10 +177,24 @@ def render_image_topology(spheres_soa: SphereSOA, camera: Camera,
     counts, num_rays, topology) is the kernel call; grad.mega passes its
     autograd Function in its place.
 
+    While utils/profiling records, the render records the spans "prepare"
+    (scene/spheres.prepare), "raygen" (ray_coords, primary_rays), "kernel"
+    (the kernel call, the table's packing included) and "reduce" (the
+    image), on the stream too where the scene is on a CUDA device, inside
+    the span open around the call (a training step's "forward",
+    grad/inverse.make_train_step, which also counts the ray total).
+
     Returns (image float32[H, W, 3], num_rays int64 0-dim tensor, topology
     int32[max_bounces+1, num_primary_rays] in ray-id order)."""
-    ray_id, x, y = ray_coords(cfg, spheres_soa.center_x.device)
-    rays = [r.contiguous() for r in primary_rays(camera, cfg, x, y, ray_id)]
-    (rr, rg, rb), _, total, topo = trace(prepare(spheres_soa), *rays, ray_id,
-                                         cfg=cfg)
-    return image_of_rays(rr, rg, rb, cfg), total, topo
+    cuda = spheres_soa.center_x.is_cuda
+    with profiling.span("prepare", cuda):
+        prep = prepare(spheres_soa)
+    with profiling.span("raygen", cuda):
+        ray_id, x, y = ray_coords(cfg, spheres_soa.center_x.device)
+        rays = [r.contiguous()
+                for r in primary_rays(camera, cfg, x, y, ray_id)]
+    with profiling.span("kernel", cuda):
+        (rr, rg, rb), _, total, topo = trace(prep, *rays, ray_id, cfg=cfg)
+    with profiling.span("reduce", cuda):
+        image = image_of_rays(rr, rg, rb, cfg)
+    return image, total, topo

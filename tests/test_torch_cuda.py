@@ -208,6 +208,36 @@ def test_fused_backward_depth_caps(cuda, mb):
         assert bool((topo[10] >= 0).any())
 
 
+def test_fit_frame_band_through_both_kernels(cuda):
+    """An 8-row band across the middle of the albedo fit's frame at the
+    reference's size (1280x720 @ 32 spp @ 50 bounces, the large scene's
+    512 rows; 327,680 primary rays): kernel A's image, counts and 51
+    topology planes equal trace_topology_reference's bit for bit, and
+    kernel B's cap-50 instantiation is within GRAD_TOL of the plain replay
+    at that topology, with paths that live past the shallow cap."""
+    cfg = RenderConfig(width=1280, height=720, spp=32, max_bounces=50,
+                       seed=5, early_exit=False)
+    scene = builders.create_large_scene(cfg.aspect, pad_multiple=128,
+                                        device=cuda)
+    lo, hi = 356 * cfg.width * cfg.spp, 364 * cfg.width * cfg.spp
+    ray_id = torch.arange(lo, hi, dtype=torch.int32, device=cuda)
+    pixel = ray_id // cfg.spp
+    rays = [r.contiguous() for r in primary_rays(
+        scene.camera.build(cuda), cfg, (pixel % cfg.width).float(),
+        (pixel // cfg.width).float(), ray_id)]
+    packed = megakernel.pack_spheres(prepare(scene.spheres))
+    rad, cnt, total, topo = megakernel.trace_topology(packed, *rays, ray_id,
+                                                      cfg)
+    ref_rad, ref_cnt, ref_topo = megakernel.trace_topology_reference(
+        packed, *rays, ray_id, cfg)
+    assert torch.equal(topo, ref_topo) and torch.equal(cnt, ref_cnt)
+    assert all(torch.equal(a, b) for a, b in zip(rad, ref_rad))
+    assert int(total) == int(cnt.sum(dtype=torch.int64))
+    del ref_rad, ref_cnt, ref_topo
+    topo = backward_against_reference(cfg, scene.spheres, rays, ray_id, cuda)
+    assert bool((topo[11] >= 0).any())
+
+
 def test_fit_runs_through_both_kernels(cuda):
     cfg = RenderConfig(width=64, height=32, spp=2, max_bounces=5,
                        early_exit=False)
