@@ -171,6 +171,12 @@
    TGA equal to scene/tga.write_rgb24's bytes and its tonemap to the
    card's to_srgb_u8; device_memory_stats' peak; the one-rank point of
    bench.scaling with telemetry.
+23. The raygen kernel, [raygen]: megakernel.generate_rays on every ray id
+   of the CLI frame (1280x720 @ 10 spp) and of the fit frame (1280x720 @
+   32 spp, a seed past 2**31) with the large scene's camera, one launch a
+   call, its six planes equal to render.pipeline.primary_rays_from_ids'
+   bit for bit (torch.equal); the call's CUDA-event ms, the kernel's
+   profiler device time alone and the plain version's CUDA-event ms.
 Then prints one JSON line of per-kernel results and, last, the device line.
 Each kernel's launches there are those of the main paths that run it: the
 respawn kernel's the headline's and the sharded path's; the one-shot
@@ -183,7 +189,10 @@ mega_backward_camera), with times and bounds on the camera fit's frame;
 the index kernel's the pipeline fit, the giant step and the sharded
 pipeline step; the phase kernel's the wavefront frame and the sharded
 one; the kIters instantiations' (respawn_iters, oneshot_iters) the
-sharded path's telemetry and the scaling point's. The kIters entries' times and bounds: the
+sharded path's telemetry and the scaling point's; the raygen kernel's
+both fits, the one-shot and wavefront frames, the CLI's and the sharded
+path's, its time (the kernel alone) and bound on the fit frame. The kIters
+entries' times and bounds: the
 respawn kernel's at compare's first case, as the respawn entry's; the
 one-shot kernel's on the CLI frame. Times and
 bounds: the gradient kernels' on the medium frame, the index kernel's on
@@ -238,14 +247,15 @@ from rays1bench_tpu_torch.grad.inverse import (InverseConfig, fit_scene,
                                                render_for_loss, with_params)
 from rays1bench_tpu_torch.kernels import (build, intersect_index,
                                           mega_backward, megakernel)
-from rays1bench_tpu_torch.kernels.pipeline import (image_of_rays,
+from rays1bench_tpu_torch.kernels.pipeline import (frame_ray_ids,
+                                                   image_of_rays,
                                                    prepare_trimmed,
-                                                   ray_coords,
                                                    render_image_megakernel)
 from rays1bench_tpu_torch.parallel import shard
 from rays1bench_tpu_torch.parallel.mesh import make_mesh, make_mesh2d
 from rays1bench_tpu_torch.parallel.shard import render_image_pallas_sharded
-from rays1bench_tpu_torch.render.pipeline import (primary_rays, render_image,
+from rays1bench_tpu_torch.render.pipeline import (primary_rays_from_ids,
+                                                  render_image,
                                                   to_srgb_u8)
 from rays1bench_tpu_torch.runtime import native
 from rays1bench_tpu_torch.scene import builders, tga
@@ -322,6 +332,11 @@ PHASE_CASES = [  # (name, scene, width, height, spp, max_bounces, schedules)
     ("small 50x30 @ 2 spp @ 4 b (ragged)", "small", 50, 30, 2, 4,
      [(2, 5), (2, 3, 6), (1,)]),
 ]
+RAYGEN_CASES = [  # (name, changes to the CLI's full config)
+    ("CLI frame 1280x720 @ 10 spp", dict(spp=10)),
+    ("fit frame 1280x720 @ 32 spp", dict(spp=32, seed=2**31 + 5)),
+]
+RAYGEN_RAY_BYTES = 4 + 6 * 4   # its id in, six float32 planes out
 # Bytes a listed ray moves through one phase: 12 state floats in and out,
 # its id, slot and alive flag in, alive out, its count in and out.
 PHASE_RAY_BYTES = 12 * 4 * 2 + 4 + 4 + 1 + 1 + 4 * 2
@@ -469,6 +484,7 @@ def reset_launches():
     megakernel.PHASE_LAUNCHES = 0
     megakernel.RESPAWN_ITERS_LAUNCHES = 0
     megakernel.ONESHOT_ITERS_LAUNCHES = 0
+    megakernel.RAYGEN_LAUNCHES = 0
     mega_backward.LAUNCHES = 0
     intersect_index.LAUNCHES = 0
 
@@ -522,8 +538,8 @@ def grad_inputs(scene_name, cfg, pad):
     scene = builders.SCENES[scene_name](cfg.aspect, pad_multiple=pad,
                                         device="cuda")
     camera = scene.camera.build("cuda")
-    ray_id, x, y = ray_coords(cfg, "cuda")
-    rays = [r.contiguous() for r in primary_rays(camera, cfg, x, y, ray_id)]
+    ray_id = frame_ray_ids(cfg, "cuda")
+    rays = [r.contiguous() for r in primary_rays_from_ids(camera, cfg, ray_id)]
     return scene, prepare(scene.spheres), rays, ray_id
 
 
@@ -610,7 +626,7 @@ def grad_case(label, scene_name, w, h, spp, mb, pad, soft=0.0):
 def fit(scene_name, pad, steps):
     """The gradient path: fit_scene from perturbed albedos to the scene's
     own render through the same engine. Returns (scene, camera, cfg,
-    fitted spheres, (topology launches, backward launches))."""
+    fitted spheres, (topology, backward, raygen launches))."""
     cfg = RenderConfig(**FULL)
     scene = builders.SCENES[scene_name](cfg.aspect, pad_multiple=pad,
                                         device="cuda")
@@ -625,7 +641,8 @@ def fit(scene_name, pad, steps):
     fitted, losses = fit_scene(start, camera, target, cfg, inv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (megakernel.ONESHOT_LAUNCHES, mega_backward.LAUNCHES)
+    launches = (megakernel.ONESHOT_LAUNCHES, mega_backward.LAUNCHES,
+                megakernel.RAYGEN_LAUNCHES)
     label = (f"{scene_name} ({scene.spheres.count} rows) {cfg.width}x"
              f"{cfg.height} @ {cfg.spp} spp @ {cfg.max_bounces} b")
     # The same step again, warm: make_train_step is what fit_scene runs.
@@ -637,11 +654,14 @@ def fit(scene_name, pad, steps):
           f"({wall * 1e3 / steps:.1f} ms a step, first-call set-up "
           f"included), warm {step_ms / 3:.2f} ms a step (CUDA events, 3 "
           f"steps); losses {', '.join(f'{x:.6e}' for x in losses)}; "
-          f"launches topology {launches[0]} backward {launches[1]}",
-          flush=True)
+          f"launches topology {launches[0]} backward {launches[1]} raygen "
+          f"{launches[2]}", flush=True)
     if min(launches) < steps:
-        raise AssertionError(f"{label}: the fit did not launch both kernels "
-                             f"every step: {launches}")
+        raise AssertionError(f"{label}: the fit did not launch the three "
+                             f"kernels every step: {launches}")
+    if launches[2] != launches[0]:
+        raise AssertionError(f"{label}: {launches[2]} raygen launches for "
+                             f"{launches[0]} topology launches")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{label}: non-finite loss")
     if steps > 1 and not losses[-1] < losses[0]:
@@ -700,8 +720,8 @@ def full_width(name, fitted, camera, cfg, n_real):
              f"{cfg.spp} spp @ {cfg.max_bounces} b"
              + (f", soft {soft}" if soft else ""))
     prep = prepare(fitted)
-    ray_id, x, y = ray_coords(cfg, "cuda")
-    rays = [r.contiguous() for r in primary_rays(camera, cfg, x, y, ray_id)]
+    ray_id = frame_ray_ids(cfg, "cuda")
+    rays = [r.contiguous() for r in primary_rays_from_ids(camera, cfg, ray_id)]
     n, s_count, mb = ray_id.numel(), prep.count, cfg.max_bounces
     packed = megakernel.pack_spheres(prep)
 
@@ -1313,10 +1333,10 @@ def phase_case(label, scene_name, w, h, spp, mb, schedules):
     the max abs gap."""
     cfg = RenderConfig(width=w, height=h, spp=spp, max_bounces=mb)
     packed, _ = packed_inputs(scene_name, cfg)
-    ray_id, x, y = ray_coords(cfg, "cuda")
+    ray_id = frame_ray_ids(cfg, "cuda")
     camera = builders.SCENES[scene_name](cfg.aspect,
                                          device="cuda").camera.build("cuda")
-    rays = [r.contiguous() for r in primary_rays(camera, cfg, x, y, ray_id)]
+    rays = [r.contiguous() for r in primary_rays_from_ids(camera, cfg, ray_id)]
     errs = []
     for schedule in schedules:
         state, alive, cnt = megakernel.wavefront_state(*rays, ray_id, cfg)
@@ -1350,8 +1370,8 @@ def engine_inputs(scene, camera, cfg):
     gives the one-shot and wavefront kernels."""
     packed = megakernel.pack_spheres(prepare_trimmed(scene.spheres,
                                                      scene.n_real))
-    ray_id, x, y = ray_coords(cfg, "cuda")
-    rays = [r.contiguous() for r in primary_rays(camera, cfg, x, y, ray_id)]
+    ray_id = frame_ray_ids(cfg, "cuda")
+    rays = [r.contiguous() for r in primary_rays_from_ids(camera, cfg, ray_id)]
     return packed, rays, ray_id
 
 
@@ -1525,13 +1545,68 @@ def phases_in_seeded_order(label, packed, rays, ray_id, cfg):
           f"in-order run's", flush=True)
 
 
+def raygen_checks():
+    """The raygen kernel (megakernel.generate_rays) against its plain
+    version (render.pipeline.primary_rays_from_ids) on the card, on every
+    ray id of RAYGEN_CASES' frames with the large scene's camera: one
+    launch a call and six planes equal bit for bit. Prints the call's
+    CUDA-event ms (50 calls; it packs the camera and allocates the planes
+    too), the kernel's alone (CUDA events over 3 x 50 back-to-back
+    launches into the same planes, the median of the three; late in this
+    run the profiler's device times read about 0.65x the events'), the
+    plain version's CUDA-event ms (3 calls) and the bound; returns the fit
+    frame's (max abs gap, kernel ms alone, plain ms, bound)."""
+    for label, change in RAYGEN_CASES:
+        cfg = dataclasses.replace(get_config("full"), **change)
+        camera = builders.SCENES["large"](
+            cfg.aspect, device="cuda").camera.build("cuda")
+        ray_id = frame_ray_ids(cfg, "cuda")
+        call = lambda: megakernel.generate_rays(camera, cfg, ray_id)
+        before = megakernel.RAYGEN_LAUNCHES
+        got = call()
+        launched = megakernel.RAYGEN_LAUNCHES - before
+        want = primary_rays_from_ids(camera, cfg, ray_id)
+        n_diff = sum(int((a != b).sum()) for a, b in zip(got, want))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        del got, want
+        _, call_ms = cuda_ms(call, reps=50)
+        _, plain_ms = cuda_ms(
+            lambda: primary_rays_from_ids(camera, cfg, ray_id), reps=3)
+        cam = megakernel.pack_camera(camera)
+        planes = [torch.empty_like(ray_id, dtype=torch.float32)
+                  for _ in range(6)]
+        stream = torch.cuda.current_stream().cuda_stream
+        launch = lambda: megakernel._raygen_kernel()(
+            ray_id.data_ptr(), ray_id.numel(), cam.data_ptr(), cfg.width,
+            cfg.spp, cfg.seed, 1.0 / cfg.width, 1.0 / cfg.height,
+            *(p.data_ptr() for p in planes), stream)
+        if launch():
+            raise AssertionError(f"[raygen] {label}: the launch failed")
+        alone = sorted(cuda_ms(launch, reps=50)[1] for _ in range(3))[1]
+        bound = bound_ms(RAYGEN_RAY_BYTES * ray_id.numel(), 0)
+        print(f"[raygen] {label}, seed {cfg.seed}, {ray_id.numel()} rays: "
+              f"launches {launched}, planes equal {equal} ({n_diff} values "
+              f"differ, max abs gap {err:.3e}); the call {call_ms:.4f} ms "
+              f"(CUDA events, 50 calls), the kernel alone {alone:.4f} ms "
+              f"(CUDA events, 3 x 50 launches, the median), plain version "
+              f"{plain_ms:.2f} ms (CUDA events, 3 calls); bound "
+              f"{bound[0]:.4f} ms ({bound[1]}, {RAYGEN_RAY_BYTES} B a ray), "
+              f"{bound[0] / alone:.3f} of the kernel's time", flush=True)
+        if launched != 1 or not equal:
+            raise AssertionError(f"[raygen] {label}: {launched} launches, "
+                                 f"{n_diff} values differ from the plain "
+                                 f"version's")
+    return err, alone, plain_ms, bound
+
+
 def engines_full():
     """The one-shot and wavefront engines at the CLI's full config on the
     large scene, then both kernels against their plain versions on the
-    frames' own inputs; returns (one-shot launches, phase launches, one-shot
-    max abs gap, phase (max abs gap, ms, plain ms, bound), the one-shot
-    kIters entry (max abs gap, ms, plain ms, bound), its (off, on) ms, and
-    the three engines' (frame, rays))."""
+    frames' own inputs; returns (one-shot launches, phase launches, raygen
+    launches (one a frame), one-shot max abs gap, phase (max abs gap, ms,
+    plain ms, bound), the one-shot kIters entry (max abs gap, ms, plain
+    ms, bound), its (off, on) ms, and the three engines' (frame, rays))."""
     cfg = get_config("full")
     scene = builders.SCENES["large"](cfg.aspect, device="cuda")
     camera = scene.camera.build("cuda")
@@ -1546,6 +1621,7 @@ def engines_full():
     (wave, n_wave), wave_ms = cuda_ms(
         lambda: render(respawn=False, wavefront=WAVEFRONT))
     launches = (megakernel.ONESHOT_LAUNCHES, megakernel.PHASE_LAUNCHES)
+    raygen = megakernel.RAYGEN_LAUNCHES
     _, resp_ms = cuda_ms(render)
     n_one, n_wave, n_resp = int(n_one), int(n_wave), int(n_resp)
     label = (f"large {cfg.width}x{cfg.height} @ {cfg.spp} spp @ "
@@ -1555,11 +1631,13 @@ def engines_full():
           f"one-shot {one_ms:.2f} ms ({n_one} rays), wavefront {WAVEFRONT} "
           f"{wave_ms:.2f} ms ({n_wave} rays), respawn {resp_ms:.2f} ms "
           f"({n_resp} rays), whole frames between CUDA events; launches "
-          f"one-shot {launches[0]}, phase {launches[1]}; one-shot vs respawn "
-          f"image max abs gap {gap:.3e}", flush=True)
+          f"one-shot {launches[0]}, phase {launches[1]}, raygen {raygen}; "
+          f"one-shot vs respawn image max abs gap {gap:.3e}", flush=True)
     if launches != (1, len(megakernel.wavefront_spans(WAVEFRONT,
-                                                      cfg.max_bounces))):
-        raise AssertionError(f"{label}: engine launches {launches}")
+                                                      cfg.max_bounces))) \
+            or raygen != 2:
+        raise AssertionError(f"{label}: engine launches {launches}, raygen "
+                             f"{raygen}")
     if not (torch.equal(wave, one) and n_wave == n_one):
         raise AssertionError(f"{label}: the wavefront engine differs from "
                              f"the one-shot engine")
@@ -1586,7 +1664,7 @@ def engines_full():
     phases_in_seeded_order(label, packed, rays, ray_id, cfg)
     frames = {"oneshot": (one, n_one), "wavefront": (wave, n_wave),
               "respawn": (resp, n_resp)}
-    return launches + (one_err, phase, one_iters, one_cost, frames)
+    return launches + (raygen, one_err, phase, one_iters, one_cost, frames)
 
 
 def shard_local(frames):
@@ -1800,6 +1878,7 @@ def shard_group(head_img, head_rays, frames):
             "phase": megakernel.PHASE_LAUNCHES,
             "respawn_iters": megakernel.RESPAWN_ITERS_LAUNCHES,
             "oneshot_iters": megakernel.ONESHOT_ITERS_LAUNCHES,
+            "raygen": megakernel.RAYGEN_LAUNCHES,
             "mega_backward": mega_backward.LAUNCHES,
             "intersect_index": intersect_index.LAUNCHES}
         print(f"[shard] group of one NCCL rank: the path in "
@@ -1823,12 +1902,14 @@ def parse_record(text):
 
 
 def cli_run():
-    """The multi-scene CLI at its defaults; returns its one-shot launches."""
+    """The multi-scene CLI at its defaults; returns its (one-shot, raygen)
+    launches, one raygen launch a one-shot frame."""
     out_dir = tempfile.mkdtemp(prefix="rays1bench_cli_")
     reset_launches()
     cli.main(["--scenes", "small,medium,large", "--num", "1", "--out-dir",
               out_dir])
     launches = megakernel.ONESHOT_LAUNCHES
+    raygen = megakernel.RAYGEN_LAUNCHES
     for name in ("small", "medium", "large"):
         with open(os.path.join(out_dir, f"out_{name}.txt")) as f:
             version, secs, rays, mrays = parse_record(f.read())
@@ -1837,10 +1918,14 @@ def cli_run():
         if not (secs > 0 and rays > get_config("full").num_primary_rays
                 and mrays > 0):
             raise AssertionError(f"out_{name}.txt: implausible record")
-    print(f"[cli] one-shot kernel launches {launches}", flush=True)
+    print(f"[cli] one-shot kernel launches {launches}, raygen {raygen}",
+          flush=True)
     if launches < 3:
         raise AssertionError("the CLI did not run the one-shot kernel")
-    return launches
+    if raygen != launches:
+        raise AssertionError(f"the CLI's {launches} one-shot frames launched "
+                             f"raygen {raygen} times")
+    return launches, raygen
 
 
 def pipeline_grads(cfg, scene, camera, pallas):
@@ -2305,7 +2390,7 @@ def main():
      frames) = engines_full()
     phase = (max(phase_err, phase[0]),) + phase[1:]
     a_err = max(a_err, one_err)
-    cli_launches = cli_run()
+    cli_launches, cli_raygen = cli_run()
     pipeline_index_vs_sweep()
     index_launches, bounce_err = pipeline_checks()
     index = (max(index[0], bounce_err),) + index[1:]
@@ -2326,6 +2411,10 @@ def main():
     t0 = time.perf_counter()
     tool_launches, tool_iters = tooling()
     print(f"[tooling] every check in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    raygen = raygen_checks()
+    print(f"[raygen] every check in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(f"[time] every phase in {time.perf_counter() - started:.1f} s",
           flush=True)
@@ -2371,6 +2460,10 @@ def main():
                      "rays1bench_tpu/kernels/megakernel.py:487",
                      shard_launches["oneshot_iters"] + tool_iters,
                      *one_iters),
+        kernel_entry("raygen", "raygen.cu",
+                     "rays1bench_tpu/render/pipeline.py:52",
+                     grad_launches[2] + engine_launches[2] + cli_raygen
+                     + shard_launches["raygen"], *raygen),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

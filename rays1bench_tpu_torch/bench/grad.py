@@ -68,8 +68,8 @@ from rays1bench_tpu_torch.grad.inverse import (InverseConfig, make_train_step,
 from rays1bench_tpu_torch.kernels import mega_backward
 from rays1bench_tpu_torch.kernels.megakernel import (pack_spheres,
                                                      trace_topology)
-from rays1bench_tpu_torch.kernels.pipeline import ray_coords
-from rays1bench_tpu_torch.render.pipeline import primary_rays
+from rays1bench_tpu_torch.kernels.pipeline import frame_ray_ids
+from rays1bench_tpu_torch.render.pipeline import primary_rays_from_ids
 from rays1bench_tpu_torch.scene import builders
 from rays1bench_tpu_torch.scene.spheres import prepare
 from rays1bench_tpu_torch.utils import profiling
@@ -177,9 +177,9 @@ def kernel_ms(spheres, camera, cfg):
     inputs."""
     with torch.no_grad():
         prep = prepare(spheres)
-        ray_id, x, y = ray_coords(cfg, spheres.center_x.device)
-        rays = [r.contiguous() for r in primary_rays(camera, cfg, x, y,
-                                                     ray_id)]
+        ray_id = frame_ray_ids(cfg, spheres.center_x.device)
+        rays = [r.contiguous() for r in primary_rays_from_ids(
+            camera, cfg, ray_id)]
         packed = pack_spheres(prep)
         fwd = lambda: trace_topology(packed, *rays, ray_id, cfg)
         fwd()

@@ -7,10 +7,10 @@ on the soft geometry fit.
 `save_case` writes what a check of the fused backward against
 backward_reference needs to run again: the SphereSOA columns and the
 per-ray radiance cotangents as .npy, the RenderConfig, the scene whose
-camera made the primary rays (kernels/pipeline.ray_coords and
-render/pipeline.primary_rays at cfg), the seeds, and the ids of a ray list
-where the check ran on one. `load_case` reads it back on any device.
-chip_smoke.py saves every gradient check that fails.
+camera made the primary rays (render/pipeline.primary_rays_from_ids at
+cfg), the seeds, and the ids of a ray list where the check ran on one.
+`load_case` reads it back on any device. chip_smoke.py saves every
+gradient check that fails.
 
 The probe (main) runs the full-resolution soft geometry fit
 (tools/fullres_fit_probe.py:55-75, as chip_smoke.py's soft_fit: small
@@ -53,8 +53,8 @@ from rays1bench_tpu_torch.bench.profile import smi
 from rays1bench_tpu_torch.core.config import RenderConfig
 from rays1bench_tpu_torch.grad.inverse import fit_scene, render_for_loss
 from rays1bench_tpu_torch.kernels import mega_backward, megakernel
-from rays1bench_tpu_torch.kernels.pipeline import ray_coords
-from rays1bench_tpu_torch.render.pipeline import primary_rays
+from rays1bench_tpu_torch.kernels.pipeline import frame_ray_ids
+from rays1bench_tpu_torch.render.pipeline import primary_rays_from_ids
 from rays1bench_tpu_torch.scene import builders, convert
 from rays1bench_tpu_torch.scene.soa_spheres import COLUMNS
 from rays1bench_tpu_torch.scene.spheres import prepare
@@ -110,9 +110,9 @@ def frame_rays(scene_name, cfg, device):
     ray-id order: (rays, ray ids)."""
     camera = builders.SCENES[scene_name](cfg.aspect,
                                          device=device).camera.build(device)
-    ray_id, x, y = ray_coords(cfg, device)
-    return ([r.contiguous() for r in primary_rays(camera, cfg, x, y, ray_id)],
-            ray_id)
+    ray_id = frame_ray_ids(cfg, device)
+    return ([r.contiguous() for r in primary_rays_from_ids(camera, cfg,
+                                                           ray_id)], ray_id)
 
 
 def random_cts(n, seed, device="cuda"):

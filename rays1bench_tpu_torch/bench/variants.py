@@ -112,8 +112,9 @@ from rays1bench_tpu_torch.grad.inverse import (InverseConfig,
                                                render_for_loss)
 from rays1bench_tpu_torch.kernels import (build, intersect_index,
                                           mega_backward, megakernel)
-from rays1bench_tpu_torch.kernels.pipeline import prepare_trimmed, ray_coords
-from rays1bench_tpu_torch.render.pipeline import primary_rays
+from rays1bench_tpu_torch.kernels.pipeline import (frame_ray_ids,
+                                                   prepare_trimmed)
+from rays1bench_tpu_torch.render.pipeline import primary_rays_from_ids
 from rays1bench_tpu_torch.scene import builders
 from rays1bench_tpu_torch.scene.spheres import prepare
 
@@ -556,8 +557,8 @@ def backward_case(label, scene_name, pad, cfg, move, fns):
                else scene.spheres)
     camera = scene.camera.build("cuda")
     prep = prepare(spheres)
-    ray_id, x, y = ray_coords(cfg, "cuda")
-    rays = [r.contiguous() for r in primary_rays(camera, cfg, x, y, ray_id)]
+    ray_id = frame_ray_ids(cfg, "cuda")
+    rays = [r.contiguous() for r in primary_rays_from_ids(camera, cfg, ray_id)]
     _, _, total, topo = megakernel.trace_topology(
         megakernel.pack_spheres(prep), *rays, ray_id, cfg)
     ct = torch.full_like(rays[0], 1.0 / cfg.num_primary_rays)
@@ -593,9 +594,9 @@ def oneshot_case(label, scene_name, pad, cfg, move, topology, fns):
     prep = (prepare_trimmed(spheres, scene.n_real) if pad is None
             else prepare(spheres))
     packed = megakernel.pack_spheres(prep)
-    ray_id, x, y = ray_coords(cfg, "cuda")
-    rays = [r.contiguous() for r in primary_rays(scene.camera.build("cuda"),
-                                                 cfg, x, y, ray_id)]
+    ray_id = frame_ray_ids(cfg, "cuda")
+    rays = [r.contiguous() for r in primary_rays_from_ids(
+        scene.camera.build("cuda"), cfg, ray_id)]
     trace = megakernel.trace_topology if topology else megakernel.trace_oneshot
     run = lambda: trace(packed, *rays, ray_id, cfg)
     ms, outs = {n: [] for n in fns}, {}
@@ -683,9 +684,9 @@ def phase_case(label, scene_name, fns, reps=3):
     scene = builders.SCENES[scene_name](cfg.aspect, device="cuda")
     packed = megakernel.pack_spheres(prepare_trimmed(scene.spheres,
                                                      scene.n_real))
-    ray_id, x, y = ray_coords(cfg, "cuda")
-    rays = [r.contiguous() for r in primary_rays(scene.camera.build("cuda"),
-                                                 cfg, x, y, ray_id)]
+    ray_id = frame_ray_ids(cfg, "cuda")
+    rays = [r.contiguous() for r in primary_rays_from_ids(
+        scene.camera.build("cuda"), cfg, ray_id)]
     pre, post = [], []
 
     def keep(packed, state, alive, ray_id, cnt, slots, b0, bend, cfg):
@@ -794,9 +795,9 @@ def index_case(label, scene_name, n, fns):
     scene = builders.SCENES[scene_name](cfg.aspect, pad_multiple=8,
                                         device="cuda")
     prep = prepare(scene.spheres)
-    ray_id, x, y = ray_coords(cfg, "cuda")
-    rays = [r[:n].contiguous() for r in primary_rays(
-        scene.camera.build("cuda"), cfg, x, y, ray_id)]
+    ray_id = frame_ray_ids(cfg, "cuda")
+    rays = [r[:n].contiguous() for r in primary_rays_from_ids(
+        scene.camera.build("cuda"), cfg, ray_id)]
     ms, alone, outs = {k: [] for k in fns}, {k: [] for k in fns}, {}
     reps = 5 if n < 1 << 20 else 2
     for name in turns(list(fns)):

@@ -6,10 +6,11 @@
 
 fused=True (the default) runs the backward as one launch of the fused kernel
 (kernels/mega_backward.backward), which returns the cotangents of the ten
-prepared sphere columns and of the six primary-ray planes. Everything around
-the two kernels is plain torch under autograd: raygen
-(render.pipeline.primary_rays) chains the ray cotangents onto the camera
-tensors, scene.spheres.prepare chains radius_sq and inv_radius onto the
+prepared sphere columns and of the six primary-ray planes. Around the two
+kernels autograd closes the chains: raygen (megakernel.generate_rays, the
+raygen kernel on the card, whose backward replays the plain raygen
+render.pipeline.primary_rays_from_ids) chains the ray cotangents onto the
+camera tensors, scene.spheres.prepare chains radius_sq and inv_radius onto the
 signed radius (its safe_r gives placeholder rows exactly 0), and the image's
 mean over spp gives each ray the pixel's cotangent / spp. The JAX package
 writes those chains by hand (_chain_to_soa, _img_ct_to_slots); here autograd
@@ -46,17 +47,19 @@ import torch
 
 from rays1bench_tpu_torch.core.config import RenderConfig
 from rays1bench_tpu_torch.kernels import mega_backward
-from rays1bench_tpu_torch.kernels.megakernel import (pack_spheres,
+from rays1bench_tpu_torch.kernels.megakernel import (CAMERA_FIELDS,
+                                                     camera_vjp,
+                                                     generate_rays,
+                                                     pack_spheres,
                                                      trace_topology)
 from rays1bench_tpu_torch.kernels.pipeline import render_image_topology
 from rays1bench_tpu_torch.render.camera import Camera
-from rays1bench_tpu_torch.render.pipeline import primary_rays, render_image
+from rays1bench_tpu_torch.render.pipeline import render_image
 from rays1bench_tpu_torch.scene.soa_spheres import SphereSOA
 from rays1bench_tpu_torch.scene.spheres import PreparedSpheres, prepare
 from rays1bench_tpu_torch.utils import profiling
 
 _PREP_FIELDS = tuple(f.name for f in dataclasses.fields(PreparedSpheres))
-_CAM_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
 
 
 class _Fused(torch.autograd.Function):
@@ -124,11 +127,8 @@ def shard_forward(prep: PreparedSpheres, camera: Camera, cfg: RenderConfig,
                   ray_id):
     """Kernel A on one rank's ray slice (parallel/shard.ray_slice), no
     collective: ((rr, rg, rb), cnt, total, topo) of trace_topology on the
-    slice's primary rays, and those rays."""
-    pixel = ray_id // cfg.spp
-    rays = [r.contiguous() for r in primary_rays(
-        camera, cfg, (pixel % cfg.width).to(torch.float32),
-        (pixel // cfg.width).to(torch.float32), ray_id)]
+    slice's primary rays (megakernel.generate_rays), and those rays."""
+    rays = generate_rays(camera, cfg, ray_id)
     return trace_topology(pack_spheres(prep), *rays, ray_id, cfg), rays
 
 
@@ -167,21 +167,10 @@ class _FusedSharded(torch.autograd.Function):
             prep, *rays, ray_id, ct_r.contiguous(), ct_g.contiguous(),
             ct_b.contiguous(), topo, ctx.cfg)
         need_cam = ctx.needs_input_grad[4 + n_prep:]
-        cam_cts = [None] * len(_CAM_FIELDS)
+        cam_cts = [None] * len(CAMERA_FIELDS)
         if any(need_cam):
-            with torch.enable_grad():
-                leaves = [t.detach().requires_grad_(True)
-                          for t in tensors[n_prep:]]
-                pixel = ray_id // ctx.cfg.spp
-                again = primary_rays(
-                    Camera(*leaves), ctx.cfg,
-                    (pixel % ctx.cfg.width).to(torch.float32),
-                    (pixel // ctx.cfg.width).to(torch.float32), ray_id)
-                got = torch.autograd.grad(again, leaves, ray_cts,
-                                          allow_unused=True)
-            cam_cts = [None if not need else
-                       (torch.zeros_like(t) if g is None else g)
-                       for need, g, t in zip(need_cam, got, leaves)]
+            cam_cts = camera_vjp(tensors[n_prep:], ctx.cfg, ray_id, ray_cts,
+                                 need_cam)
         live = [c for c in cam_cts if c is not None]
         flat = torch.cat([grads.reshape(-1)] + [c.reshape(-1) for c in live])
         torch.distributed.all_reduce(flat, group=ctx.group)
@@ -215,5 +204,5 @@ def render_image_mega_sharded(spheres_soa: SphereSOA, camera: Camera,
     parts, total = _FusedSharded.apply(
         cfg, mesh, _mesh_order(mesh).index(torch.distributed.get_rank()),
         ray_id, *(getattr(prep, f) for f in _PREP_FIELDS),
-        *(getattr(camera, f) for f in _CAM_FIELDS))
+        *(getattr(camera, f) for f in CAMERA_FIELDS))
     return assemble_rays(parts, cfg, (n_dev, 1)), total

@@ -32,7 +32,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "rays1bench_
 # (library name, source under csrc/) of every kernel of the port.
 KERNELS = (("respawn", "respawn.cu"), ("oneshot", "oneshot.cu"),
            ("mega_backward", "mega_backward.cu"),
-           ("intersect_index", "intersect_index.cu"), ("phase", "phase.cu"))
+           ("intersect_index", "intersect_index.cu"), ("phase", "phase.cu"),
+           ("raygen", "raygen.cu"))
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",

@@ -3,8 +3,8 @@
 // over the broadcast layout of the sphere table (float4 hot rows), its
 // unpack, the soft-silhouette mode's graze sweep and soft record, material
 // scatter, the sky, the respawn, one-shot and phase kernels' whole lanes
-// (respawn_pixel, oneshot_lane, phase_lane) and the index kernel's tiled
-// sweep (index_tiles).
+// (respawn_pixel, oneshot_lane, phase_lane), the raygen kernel's (id_ray)
+// and the index kernel's tiled sweep (index_tiles).
 //
 // Each function computes exactly what its plain PyTorch counterpart computes
 // (rays1bench_tpu_torch/core/rng.py, core/vecmath.py, render/camera.py,
@@ -477,6 +477,21 @@ __device__ __forceinline__ uint32_t pixel_ray(const float* cam, int pid,
   generate_ray(cam, (xf + ju) * inv_w, (yf + jv) * inv_h, seed, rid, ox, oy,
                oz, dx, dy, dz);
   return rid;
+}
+
+// ---- the raygen kernel's lane (raygen.cu) ----------------------------------
+
+// Primary ray of ray id `id` (render/pipeline.primary_rays_from_ids): sample
+// id % spp of pixel id / spp, at x = pixel % width, y = pixel / width, ids
+// past the frame included.
+__device__ __forceinline__ void id_ray(const float* cam, int id, int width,
+                                       int spp, uint32_t seed, float inv_w,
+                                       float inv_h, float& ox, float& oy,
+                                       float& oz, float& dx, float& dy,
+                                       float& dz) {
+  const int pid = id / spp;
+  pixel_ray(cam, pid, id - pid * spp, spp, (float)(pid % width),
+            (float)(pid / width), seed, inv_w, inv_h, ox, oy, oz, dx, dy, dz);
 }
 
 // Every sample s_lo..s_hi-1 of one pixel, as one flat loop of segments

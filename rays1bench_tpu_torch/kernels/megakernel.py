@@ -12,12 +12,15 @@ topology the winning sphere row of every bounce (the gradient path's
 forward). `trace_wavefront` is the counterpart of `trace_pallas_wavefront`:
 phases of bounces (`wavefront_phase`, one launch of the phase kernel
 each; from 16 table rows up, each lane takes the next listed ray when its
-ray ends) with the live rays listed between phases. On a CUDA tensor each
-launches its kernel (csrc/respawn.cu, csrc/oneshot.cu, csrc/phase.cu, built by
-kernels/build.py); on a CPU tensor it runs its plain torch version
-(`trace_respawn_reference`, `trace_topology_reference`,
-`wavefront_phase_reference`). There is no fallback between the two: a CUDA
-input launches the kernel or raises.
+ray ends) with the live rays listed between phases. `generate_rays` makes
+the primary rays of given ray ids, which the last three take; it has no
+Pallas counterpart (the JAX package's raygen is jnp, fused by XLA). On a
+CUDA tensor each launches its kernel (csrc/respawn.cu, csrc/oneshot.cu,
+csrc/phase.cu, csrc/raygen.cu, built by kernels/build.py); on a CPU tensor
+it runs its plain torch version (`trace_respawn_reference`,
+`trace_topology_reference`, `wavefront_phase_reference`,
+render.pipeline.primary_rays_from_ids). There is no fallback between the
+two: a CUDA input launches the kernel or raises.
 
 All read the same packed tables as the Pallas kernels, kept bit for bit:
 the (7, S) sphere table of `pack_spheres` (placeholder radius_sq poisoned to
@@ -56,6 +59,7 @@ and wavefront engines are hard only and refuse it, as in the JAX package.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -68,23 +72,29 @@ from rays1bench_tpu_torch.render.integrator import (bounce_step,
                                                     initial_state, trace)
 from rays1bench_tpu_torch.render.intersect import (HitRecord, SoftHitRecord,
                                                    near_cut, soft_fields)
-from rays1bench_tpu_torch.render.pipeline import primary_rays
+from rays1bench_tpu_torch.render.pipeline import (primary_rays,
+                                                  primary_rays_from_ids)
 from rays1bench_tpu_torch.scene.spheres import PreparedSpheres
+from rays1bench_tpu_torch.utils import profiling
 
 NUM_SPHERE_ROWS = 7
 CAMERA_FLOATS = 19
+# Camera's tensors in field order, as autograd Functions take them.
+CAMERA_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
 _BIG = 3.0e38
 # Dynamic shared memory a block may use on Hopper (227 KB), less the
 # kernel's static shared arrays.
 _MAX_TABLE_BYTES = 232448 - 1024
 
 # Kernel launches made by trace_respawn, by trace_topology and
-# trace_oneshot (one kernel), and by wavefront_phase (one per call on a CUDA
-# tensor that has rays to advance); those of the respawn and one-shot
-# kernels' kIters instantiations (debug_iters=True) apart.
+# trace_oneshot (one kernel), by wavefront_phase (one per call on a CUDA
+# tensor that has rays to advance) and by generate_rays (one per call on a
+# CUDA tensor that has rays); those of the respawn and one-shot kernels'
+# kIters instantiations (debug_iters=True) apart.
 LAUNCHES = 0
 ONESHOT_LAUNCHES = 0
 PHASE_LAUNCHES = 0
+RAYGEN_LAUNCHES = 0
 RESPAWN_ITERS_LAUNCHES = 0
 ONESHOT_ITERS_LAUNCHES = 0
 # The kernels' warp layouts, for the plain versions of their trip counts:
@@ -131,6 +141,94 @@ def unpack_camera(cam: torch.Tensor) -> Camera:
     return Camera(origin=cam[0:3], lower_left=cam[3:6], horizontal=cam[6:9],
                   vertical=cam[9:12], u=cam[12:15], v=cam[15:18],
                   lens_radius=cam[18])
+
+
+def _raygen_kernel():
+    lib = build.load("raygen", "raygen.cu")
+    fn = lib.rays1_raygen_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, i, p, i, i, ctypes.c_uint32, f, f, p, p, p, p, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def camera_vjp(cam_tensors, cfg: RenderConfig, ray_id, ray_cts, need):
+    """The cotangents of the camera's tensors (Camera's fields in order)
+    given those of the six ray planes of ray_id: the plain raygen
+    (primary_rays_from_ids) replayed under autograd on detached copies.
+    None where `need` is false, zeros where a tensor does not reach the
+    rays."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in cam_tensors]
+        again = primary_rays_from_ids(Camera(*leaves), cfg, ray_id)
+        got = torch.autograd.grad(again, leaves, ray_cts, allow_unused=True)
+    return [None if not n else (torch.zeros_like(t) if g is None else g)
+            for n, g, t in zip(need, got, leaves)]
+
+
+class _Raygen(torch.autograd.Function):
+    """generate_rays under autograd. The forward launches the kernel of
+    csrc/raygen.cu on a CUDA tensor (none for an empty ray_id) and runs
+    primary_rays_from_ids on a CPU one; the backward is camera_vjp.
+    Autograd records it only where a camera tensor requires grad
+    (grad/inverse.fit_camera); elsewhere its outputs have no grad_fn."""
+
+    @staticmethod
+    def forward(ctx, cfg, ray_id, *cam_tensors):
+        global RAYGEN_LAUNCHES
+        ctx.cfg = cfg
+        ctx.save_for_backward(ray_id, *cam_tensors)
+        camera = Camera(*cam_tensors)
+        device = ray_id.device
+        n = ray_id.shape[0] if ray_id.dim() == 1 else -1
+        check_rays(n, device, ray_id=ray_id)
+        if device.type == "cpu":
+            return tuple(r.contiguous()
+                         for r in primary_rays_from_ids(camera, cfg, ray_id))
+        if device.type != "cuda":
+            raise ValueError(f"generate_rays runs on cuda or cpu, not "
+                             f"{device}")
+        cam = pack_camera(camera)
+        check_tensor("cam", cam, torch.float32, (CAMERA_FLOATS,), device)
+        rays = tuple(torch.empty(n, dtype=torch.float32, device=device)
+                     for _ in range(6))
+        if n:
+            err = _raygen_kernel()(
+                ray_id.data_ptr(), n, cam.data_ptr(), cfg.width, cfg.spp,
+                cfg.seed, 1.0 / cfg.width, 1.0 / cfg.height,
+                *(r.data_ptr() for r in rays),
+                torch.cuda.current_stream(device).cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"raygen kernel launch failed: cudaError "
+                                   f"{err}")
+            RAYGEN_LAUNCHES += 1
+        return rays
+
+    @staticmethod
+    def backward(ctx, *ray_cts):
+        ray_id, *cam_tensors = ctx.saved_tensors
+        return (None, None) + tuple(camera_vjp(
+            cam_tensors, ctx.cfg, ray_id, ray_cts, ctx.needs_input_grad[2:]))
+
+
+def generate_rays(camera: Camera, cfg: RenderConfig, ray_id):
+    """The primary rays of the given global ids: ray_id int32[N] in any
+    order (ids >= cfg.num_primary_rays are padding and get what
+    primary_rays_from_ids gives them). Returns (ox, oy, oz, dx, dy, dz),
+    float32[N] each, contiguous.
+
+    CUDA tensors launch the kernel of csrc/raygen.cu on the current stream,
+    whose planes equal primary_rays_from_ids' bit for bit; the camera's
+    tensors must lie on ray_id's device. CPU tensors run
+    primary_rays_from_ids. Either way the camera's gradient is that of
+    primary_rays_from_ids (camera_vjp), taken only where a camera tensor
+    requires grad. While utils/profiling records, counts the rays the
+    kernel made under "raygen_kernel_rays" (0 on the CPU)."""
+    rays = _Raygen.apply(cfg, ray_id,
+                         *(getattr(camera, f) for f in CAMERA_FIELDS))
+    profiling.count("raygen_kernel_rays",
+                    ray_id.shape[0] if ray_id.is_cuda else 0)
+    return rays
 
 
 def sweep(packed: torch.Tensor, ox, oy, oz, dx, dy, dz, t_min: float):

@@ -12,7 +12,8 @@ tile_rays, unroll and sync_every (Mosaic and VPU tuning knobs with no
 meaning for a thread per pixel or ray); the cull option, since "sort_trim"
 was the only trim the JAX pipeline kept besides "none"
 (render_image_topology is the cull="none" case). The one-shot, wavefront
-and topology paths feed their kernel in ray-id order:
+and topology paths feed their kernel the primary rays that
+megakernel.generate_rays makes from the ray ids, in ray-id order:
 the slot order, slot_layout, _tile_coords, _slot_of_id, sync_every and
 unroll of the JAX paths are TPU workarounds. The power-of-two row trim
 stays: it is harmless and keeps the row count, and so the first-wins tie
@@ -27,14 +28,14 @@ import torch
 
 from rays1bench_tpu_torch.core.config import RenderConfig
 from rays1bench_tpu_torch.kernels import culling
-from rays1bench_tpu_torch.kernels.megakernel import (pack_camera, pack_spheres,
+from rays1bench_tpu_torch.kernels.megakernel import (generate_rays,
+                                                     pack_camera, pack_spheres,
                                                      respawn_iters_reference,
                                                      trace_oneshot,
                                                      trace_respawn,
                                                      trace_topology,
                                                      trace_wavefront)
 from rays1bench_tpu_torch.render.camera import Camera
-from rays1bench_tpu_torch.render.pipeline import primary_rays
 from rays1bench_tpu_torch.scene.soa_spheres import COLUMNS, SphereSOA
 from rays1bench_tpu_torch.scene.spheres import PreparedSpheres, prepare
 from rays1bench_tpu_torch.utils import profiling
@@ -92,9 +93,11 @@ def render_image_megakernel(spheres_soa: SphereSOA, camera: Camera,
 
     While utils/profiling records, the frame records the spans "frame" and,
     inside it, "prepare" (the Morton sort, trim and packing), "raygen" (the
-    primary rays; not with respawn), "kernel" and "reduce" (the image), on
-    the stream too where the scene is on a CUDA device, and the counters
-    "rays" and, with respawn, "warp_trips" (count_warp_trips).
+    ray ids and megakernel.generate_rays; not with respawn), "kernel" and
+    "reduce" (the image), on the stream too where the scene is on a CUDA
+    device, and the counters "rays", "raygen_kernel_rays" (not with
+    respawn; generate_rays) and, with respawn, "warp_trips"
+    (count_warp_trips).
 
     Returns (image float32[H, W, 3], mean radiance per pixel, row 0 at the
     bottom; num_rays int64 0-dim tensor)."""
@@ -116,9 +119,8 @@ def render_image_megakernel(spheres_soa: SphereSOA, camera: Camera,
                 image = rad * (1.0 / cfg.spp)
         else:
             with profiling.span("raygen", cuda):
-                ray_id, x, y = ray_coords(cfg, packed.device)
-                rays = [r.contiguous()
-                        for r in primary_rays(camera, cfg, x, y, ray_id)]
+                ray_id = frame_ray_ids(cfg, packed.device)
+                rays = generate_rays(camera, cfg, ray_id)
             with profiling.span("kernel", cuda):
                 out = (trace_oneshot(packed, *rays, ray_id, cfg)
                        if wavefront is None else
@@ -145,14 +147,12 @@ def count_warp_trips(cnt: torch.Tensor, width: int) -> None:
                         lambda: respawn_iters_reference(cnt, width))
 
 
-def ray_coords(cfg: RenderConfig, device):
-    """(ray_id int32[N], x, y float32[N]) of every primary ray in ray-id
-    order, ray_id = (y * W + x) * spp + s."""
-    ray_id = torch.arange(cfg.num_primary_rays, dtype=torch.int32,
-                          device=device)
-    pixel = ray_id // cfg.spp
-    return (ray_id, (pixel % cfg.width).to(torch.float32),
-            (pixel // cfg.width).to(torch.float32))
+def frame_ray_ids(cfg: RenderConfig, device):
+    """ray_id int32[N] of every primary ray of the frame in ray-id order,
+    ray_id = (y * W + x) * spp + s: what megakernel.generate_rays and
+    render.pipeline.primary_rays_from_ids make the rays from."""
+    return torch.arange(cfg.num_primary_rays, dtype=torch.int32,
+                        device=device)
 
 
 def image_of_rays(rr, rg, rb, cfg: RenderConfig):
@@ -178,7 +178,8 @@ def render_image_topology(spheres_soa: SphereSOA, camera: Camera,
     autograd Function in its place.
 
     While utils/profiling records, the render records the spans "prepare"
-    (scene/spheres.prepare), "raygen" (ray_coords, primary_rays), "kernel"
+    (scene/spheres.prepare), "raygen" (the ray ids and
+    megakernel.generate_rays, which counts "raygen_kernel_rays"), "kernel"
     (the kernel call, the table's packing included) and "reduce" (the
     image), on the stream too where the scene is on a CUDA device, inside
     the span open around the call (a training step's "forward",
@@ -190,9 +191,8 @@ def render_image_topology(spheres_soa: SphereSOA, camera: Camera,
     with profiling.span("prepare", cuda):
         prep = prepare(spheres_soa)
     with profiling.span("raygen", cuda):
-        ray_id, x, y = ray_coords(cfg, spheres_soa.center_x.device)
-        rays = [r.contiguous()
-                for r in primary_rays(camera, cfg, x, y, ray_id)]
+        ray_id = frame_ray_ids(cfg, spheres_soa.center_x.device)
+        rays = generate_rays(camera, cfg, ray_id)
     with profiling.span("kernel", cuda):
         (rr, rg, rb), _, total, topo = trace(prep, *rays, ray_id, cfg=cfg)
     with profiling.span("reduce", cuda):

@@ -53,7 +53,7 @@ from rays1bench_tpu_torch.kernels.pipeline import (count_warp_trips,
                                                    prepare_trimmed)
 from rays1bench_tpu_torch.parallel.mesh import layout
 from rays1bench_tpu_torch.render.camera import Camera
-from rays1bench_tpu_torch.render.pipeline import primary_rays, trace_rays
+from rays1bench_tpu_torch.render.pipeline import trace_rays
 from rays1bench_tpu_torch.scene.soa_spheres import SphereSOA
 from rays1bench_tpu_torch.scene.spheres import prepare
 from rays1bench_tpu_torch.utils import profiling
@@ -118,8 +118,8 @@ def kernel_local(spheres_soa: SphereSOA, camera: Camera, cfg: RenderConfig,
     (Morton sort and, with n_real, the power-of-two trim) or "none" (the
     rows as given). Records
     render_image_megakernel's spans "prepare", "raygen" and "kernel" and
-    counters "rays" and, with respawn, "warp_trips" while utils/profiling
-    records."""
+    counters "rays", "raygen_kernel_rays" (not with respawn) and, with
+    respawn, "warp_trips" while utils/profiling records."""
     if respawn and wavefront is not None:
         raise ValueError("respawn and wavefront are alternative scheduling "
                          "strategies")
@@ -148,10 +148,7 @@ def kernel_local(spheres_soa: SphereSOA, camera: Camera, cfg: RenderConfig,
     else:
         with profiling.span("raygen", cuda):
             ray_id = ray_slice(cfg, n_tiles, n_samp, i, j, packed.device)
-            pixel = ray_id // cfg.spp
-            rays = [r.contiguous() for r in primary_rays(
-                camera, cfg, (pixel % cfg.width).to(torch.float32),
-                (pixel // cfg.width).to(torch.float32), ray_id)]
+            rays = megakernel.generate_rays(camera, cfg, ray_id)
         with profiling.span("kernel", cuda):
             out = (megakernel.trace_wavefront(packed, *rays, ray_id, cfg,
                                               wavefront)

@@ -37,6 +37,16 @@ def primary_rays(camera: Camera, cfg: RenderConfig, x, y, ray_id):
     return camera.generate_rays(s, t, cfg.seed, ray_id)
 
 
+def primary_rays_from_ids(camera: Camera, cfg: RenderConfig, ray_id):
+    """primary_rays of the given ids (int32[N], any order, padding ids >=
+    cfg.num_primary_rays included) at their pixels' coordinates, x = pixel
+    % W and y = pixel // W of pixel = ray_id // spp: the plain version of
+    the raygen kernel (kernels/megakernel.generate_rays)."""
+    pixel = ray_id // cfg.spp
+    return primary_rays(camera, cfg, (pixel % cfg.width).to(torch.float32),
+                        (pixel // cfg.width).to(torch.float32), ray_id)
+
+
 def render_image(spheres_soa: SphereSOA, camera: Camera, cfg: RenderConfig,
                  topology=None, remat=None):
     """Render a linear-radiance float image.
@@ -91,10 +101,7 @@ def trace_rays(spheres: PreparedSpheres, camera: Camera, ray_id,
     num_rays = torch.zeros((), dtype=torch.int64, device=ray_id.device)
     for lo in range(0, n, cfg.ray_chunk):
         ids = ray_id[lo:lo + cfg.ray_chunk]
-        pixel = ids // cfg.spp
-        x = (pixel % cfg.width).to(torch.float32)
-        y = (pixel // cfg.width).to(torch.float32)
-        rays = primary_rays(camera, cfg, x, y, ids)
+        rays = primary_rays_from_ids(camera, cfg, ids)
         topo = None
         if topology is not None:
             idx = topology[:, lo:lo + ids.shape[0]]

@@ -471,10 +471,11 @@ def _split(leaf, step, size):
     x = int(np.argmax(cols))
     print(f"pixel ({r}, {x}) carries {cols[x] / total:.4f}; the next "
           f"pixel's {sorted(cols)[-2] / total:.2e}", flush=True)
-    from rays1bench_tpu_torch.kernels.pipeline import ray_coords
-    from rays1bench_tpu_torch.render.pipeline import primary_rays
-    ray_id, xs, ys = ray_coords(cfg, "cpu")
-    rays = primary_rays(cam, cfg, xs, ys, ray_id)
+    from rays1bench_tpu_torch.kernels.pipeline import frame_ray_ids
+    from rays1bench_tpu_torch.render.pipeline import (
+        primary_rays_from_ids)
+    ray_id = frame_ray_ids(cfg, "cpu")
+    rays = primary_rays_from_ids(cam, cfg, ray_id)
     s = scene.spheres
     for rid in range((r * w + x) * spp, (r * w + x + 1) * spp):
         first = int(topo[0, rid])

@@ -25,10 +25,13 @@ from rays1bench_tpu_torch.grad import inverse
 from rays1bench_tpu_torch.grad.mega import render_image_mega
 from rays1bench_tpu_torch.kernels import (intersect_index, mega_backward,
                                          megakernel)
-from rays1bench_tpu_torch.kernels.pipeline import (prepare_trimmed, ray_coords,
+from rays1bench_tpu_torch.kernels.pipeline import (frame_ray_ids,
+                                                   prepare_trimmed,
                                                    render_image_megakernel)
 from rays1bench_tpu_torch.render.camera import CameraSpec
-from rays1bench_tpu_torch.render.pipeline import primary_rays, render_image
+from rays1bench_tpu_torch.render.pipeline import (primary_rays,
+                                                  primary_rays_from_ids,
+                                                  render_image)
 from rays1bench_tpu_torch.scene import builders
 from rays1bench_tpu_torch.scene.soa_spheres import COLUMNS, SphereSOABuilder
 from rays1bench_tpu_torch.scene.spheres import prepare
@@ -104,9 +107,9 @@ def grad_inputs(scene_name, w, h, spp, mb, pad, device, soft=0.0):
                        early_exit=False, soft_silhouette=soft)
     scene = builders.SCENES[scene_name](cfg.aspect, pad_multiple=pad,
                                         device=device)
-    ray_id, x, y = ray_coords(cfg, device)
-    rays = [r.contiguous() for r in primary_rays(
-        scene.camera.build(device), cfg, x, y, ray_id)]
+    ray_id = frame_ray_ids(cfg, device)
+    rays = [r.contiguous() for r in primary_rays_from_ids(
+        scene.camera.build(device), cfg, ray_id)]
     return cfg, scene, prepare(scene.spheres), rays, ray_id
 
 
@@ -169,8 +172,8 @@ def test_fused_backward_when_every_ray_hits_one_row(cuda):
     soa = b.finalize(8, cuda)
     camera = CameraSpec(lookfrom=(0, 3, -1), lookat=(0, 0, -1),
                         vup=(0, 0, -1), aspect=cfg.aspect).build(cuda)
-    ray_id, x, y = ray_coords(cfg, cuda)
-    rays = [r.contiguous() for r in primary_rays(camera, cfg, x, y, ray_id)]
+    ray_id = frame_ray_ids(cfg, cuda)
+    rays = [r.contiguous() for r in primary_rays_from_ids(camera, cfg, ray_id)]
     topo = backward_against_reference(cfg, soa, rays, ray_id, cuda)
     assert bool((topo[0] == 0).all()) and int(topo.max()) == 0
 
@@ -221,10 +224,8 @@ def test_fit_frame_band_through_both_kernels(cuda):
                                         device=cuda)
     lo, hi = 356 * cfg.width * cfg.spp, 364 * cfg.width * cfg.spp
     ray_id = torch.arange(lo, hi, dtype=torch.int32, device=cuda)
-    pixel = ray_id // cfg.spp
-    rays = [r.contiguous() for r in primary_rays(
-        scene.camera.build(cuda), cfg, (pixel % cfg.width).float(),
-        (pixel // cfg.width).float(), ray_id)]
+    rays = [r.contiguous() for r in primary_rays_from_ids(
+        scene.camera.build(cuda), cfg, ray_id)]
     packed = megakernel.pack_spheres(prepare(scene.spheres))
     rad, cnt, total, topo = megakernel.trace_topology(packed, *rays, ray_id,
                                                       cfg)
@@ -870,3 +871,132 @@ def test_sharded_frames_carry_their_times_in_a_group_of_one(cuda,
             r["collective_ms"] for r in rows[1:])
     finally:
         dist.destroy_process_group()
+
+
+# (width, height, spp) of the raygen kernel's cases; ids: "frame" (ray-id
+# order), "band" (an 8-row band), "slice" (the last rank's padded slice of a
+# 4-rank split, shuffled).
+RAYGEN_CASES = {
+    "the CLI frame": (1280, 720, 10, "frame"),
+    "a band of the fit frame": (1280, 720, 32, "band"),
+    "a padded slice, shuffled": (1281, 721, 10, "slice"),
+    "an odd size": (161, 93, 3, "frame"),      # a partial last block
+}
+
+
+@pytest.mark.parametrize("case", RAYGEN_CASES)
+def test_raygen_kernel_equals_plain_version(cuda, case):
+    """megakernel.generate_rays launches the kernel of csrc/raygen.cu once,
+    and its six planes equal primary_rays at the ids' pixel coordinates,
+    on the card, bit for bit (a large seed, the large scene's lens)."""
+    from rays1bench_tpu_torch.parallel.shard import ray_slice
+
+    w, h, spp, ids = RAYGEN_CASES[case]
+    cfg = RenderConfig(width=w, height=h, spp=spp, seed=2 ** 31 + 5)
+    camera = builders.create_large_scene(cfg.aspect,
+                                         device=cuda).camera.build(cuda)
+    if ids == "band":
+        ray_id = torch.arange(356 * w * spp, 364 * w * spp,
+                              dtype=torch.int32, device=cuda)
+    elif ids == "slice":
+        ray_id = ray_slice(cfg, 4, 1, 3, 0, cuda)
+        perm = torch.randperm(ray_id.numel(),
+                              generator=torch.Generator().manual_seed(1))
+        ray_id = ray_id[perm.to(cuda)].contiguous()
+        assert int(ray_id.max()) >= cfg.num_primary_rays
+    else:
+        ray_id = torch.arange(cfg.num_primary_rays, dtype=torch.int32,
+                              device=cuda)
+    pixel = ray_id // spp
+    want = primary_rays(camera, cfg, (pixel % w).float(),
+                        (pixel // w).float(), ray_id)
+    before = megakernel.RAYGEN_LAUNCHES
+    got = megakernel.generate_rays(camera, cfg, ray_id)
+    torch.cuda.synchronize()
+    assert megakernel.RAYGEN_LAUNCHES == before + 1
+    assert all(r.is_contiguous() for r in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def raygen_fit(device):
+    """A small albedo fit's step on "mega", its target and config."""
+    cfg = RenderConfig(width=48, height=32, spp=2, max_bounces=5,
+                       early_exit=False)
+    scene = builders.create_small_scene(cfg.aspect, pad_multiple=8,
+                                        device=device)
+    camera = scene.camera.build(device)
+    with torch.no_grad():
+        target = inverse.render_for_loss(scene.spheres, camera, cfg)
+    params = inverse.params_of(scene.spheres, ("albedo_x",))
+    step, _ = inverse.make_train_step(
+        scene.spheres, camera, cfg,
+        inverse.InverseConfig(learning_rate=1e-2, optimize=("albedo_x",)),
+        params, engine="mega")
+    return scene, camera, cfg, step, target
+
+
+def test_raygen_launches_once_a_frame_or_step_and_is_recorded(cuda):
+    """The raygen kernel launches once for a one-shot frame and once for a
+    fit step, never for a respawn frame; under the profiler each records
+    its "raygen" span and the counter raygen_kernel_rays, the frame's or
+    step's primary rays."""
+    from rays1bench_tpu_torch.utils import profiling
+
+    scene, camera, cfg, step, target = raygen_fit(cuda)
+    frame = lambda respawn: render_image_megakernel(
+        scene.spheres, camera, cfg, scene.n_real, respawn=respawn)
+    before = megakernel.RAYGEN_LAUNCHES
+    frame(False)
+    assert megakernel.RAYGEN_LAUNCHES == before + 1
+    step(target)
+    assert megakernel.RAYGEN_LAUNCHES == before + 2
+    frame(True)
+    assert megakernel.RAYGEN_LAUNCHES == before + 2
+    with profiling.session():
+        frame(False)
+        step(target)
+        frame(True)
+        torch.cuda.synchronize()
+    n = cfg.num_primary_rays
+    assert profiling.counts("raygen_kernel_rays") == [(0, n), (1, n)]
+    spans = profiling.spans("raygen")
+    assert [s.frame for s in spans] == [0, 1]
+    assert all(s.stream_ms > 0 for s in spans)
+
+
+def test_camera_gradient_through_the_raygen_kernel(cuda, monkeypatch):
+    """The camera's gradient on the fused path with the raygen kernel
+    forward (its Function's backward replays the plain raygen) against
+    autograd through primary_rays itself: within GRAD_TOL (kernel B sums
+    its cotangents with float atomics), and not zero."""
+    from rays1bench_tpu_torch.kernels import pipeline
+    from rays1bench_tpu_torch.render.camera import build_camera
+    from rays1bench_tpu_torch.render.pipeline import primary_rays_from_ids
+
+    cfg = RenderConfig(width=64, height=32, spp=2, max_bounces=5, seed=9,
+                       early_exit=False)
+    scene = builders.create_small_scene(cfg.aspect, pad_multiple=8,
+                                        device=cuda)
+    spec = scene.camera
+    weights = torch.rand((cfg.height, cfg.width, 3),
+                         generator=torch.Generator().manual_seed(4)).to(cuda)
+
+    def grads():
+        lookfrom = torch.tensor(spec.lookfrom, dtype=torch.float32,
+                                device=cuda, requires_grad=True)
+        vfov = torch.tensor(spec.vfov, dtype=torch.float32, device=cuda,
+                            requires_grad=True)
+        camera = build_camera(lookfrom, spec.lookat, spec.vup, vfov,
+                              spec.aspect, spec.aperture, spec.focus_dist)
+        img, _ = render_image_mega(scene.spheres, camera, cfg)
+        (img * weights).sum().backward()
+        return lookfrom.grad, vfov.grad
+
+    before = megakernel.RAYGEN_LAUNCHES
+    kernel = grads()
+    assert megakernel.RAYGEN_LAUNCHES == before + 1
+    monkeypatch.setattr(pipeline, "generate_rays", primary_rays_from_ids)
+    plain = grads()
+    for a, b in zip(kernel, plain):
+        assert float(b.abs().max()) > 0
+        assert float((a - b).abs().max()) <= GRAD_TOL * float(b.abs().max())

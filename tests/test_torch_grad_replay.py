@@ -48,11 +48,11 @@ from rays1bench_tpu.scene import builders as jbuilders
 from rays1bench_tpu.scene import spheres as jspheres
 from rays1bench_tpu_torch.core.config import RenderConfig
 from rays1bench_tpu_torch.kernels import mega_backward, megakernel
-from rays1bench_tpu_torch.kernels.pipeline import ray_coords
+from rays1bench_tpu_torch.kernels.pipeline import frame_ray_ids
 from rays1bench_tpu_torch.render import integrator as tintegrator
 from rays1bench_tpu_torch.render import intersect as tintersect
 from rays1bench_tpu_torch.render import pipeline as tpipeline
-from rays1bench_tpu_torch.render.pipeline import primary_rays
+from rays1bench_tpu_torch.render.pipeline import primary_rays_from_ids
 from rays1bench_tpu_torch.scene import convert
 from rays1bench_tpu_torch.scene import spheres as tspheres
 from rays1bench_tpu_torch.scene.soa_spheres import COLUMNS
@@ -79,8 +79,8 @@ def case(mb):
     jcam = jscene.camera.build()
     soa = convert.soa_from_numpy(leaves(jscene.spheres, COLUMNS), "cpu")
     cam = convert.camera_from_numpy(leaves(jcam, convert.CAMERA_FIELDS), "cpu")
-    rid, x, y = ray_coords(cfg, "cpu")
-    rays = [r.numpy() for r in primary_rays(cam, cfg, x, y, rid)]
+    rid = frame_ray_ids(cfg, "cpu")
+    rays = [r.numpy() for r in primary_rays_from_ids(cam, cfg, rid)]
     jprep = jspheres.prepare(jscene.spheres)
     (jrr, jrg, jrb), jn, jtopo = jmega.trace_pallas(
         jprep, *map(jnp.asarray, rays), jnp.asarray(rid.numpy()), jcfg,

@@ -1,17 +1,18 @@
-"""Host rehearsal of the kernels' lanes: respawn, one-shot, phase, fused
-backward and the index sweep's tile loop.
+"""Host rehearsal of the kernels' lanes: respawn, one-shot, phase, raygen,
+fused backward and the index sweep's tile loop.
 
 The per-lane bodies of kernels/csrc/respawn.cu, oneshot.cu, phase.cu,
-mega_backward.cu and intersect_index.cu live in header functions,
-`r1b::respawn_pixel`, `r1b::oneshot_lane`, `r1b::phase_lane`,
-`r1b::index_tiles` (path_math.cuh) and `r1b::backward_ray`
+raygen.cu, mega_backward.cu and intersect_index.cu live in header
+functions, `r1b::respawn_pixel`, `r1b::oneshot_lane`, `r1b::phase_lane`,
+`r1b::id_ray`, `r1b::index_tiles` (path_math.cuh) and `r1b::backward_ray`
 (path_adjoint.cuh), that are plain C++ once `__device__` and
 `__forceinline__` are defined away. This file compiles them with g++
 -std=c++17 -O2 -ffp-contract=off (no contracted multiply-add, as nvcc
 --fmad=false) into a scratch library, loops them over every pixel or ray
 on the host, and holds them against the plain versions: the respawn,
 one-shot and phase lanes bit for bit against trace_respawn_reference,
-trace_topology_reference and wavefront_phase_reference, the index sweep
+trace_topology_reference and wavefront_phase_reference, the raygen lane
+bit for bit against render.pipeline.primary_rays, the index sweep
 bit for bit against closest_hit_index_reference, the backward lane within
 GRAD_TOL of backward_reference. The one-shot and phase lanes take their
 rays (list entries) in an order that is not the input order (reversed, or
@@ -39,9 +40,12 @@ from rays1bench_tpu_torch.core.config import RenderConfig
 from rays1bench_tpu_torch.core.vecmath import f32
 from rays1bench_tpu_torch.kernels import (build, intersect_index,
                                           mega_backward, megakernel)
-from rays1bench_tpu_torch.kernels.pipeline import prepare_trimmed, ray_coords
+from rays1bench_tpu_torch.kernels.pipeline import (frame_ray_ids,
+                                                   prepare_trimmed)
+from rays1bench_tpu_torch.parallel import shard
 from rays1bench_tpu_torch.render.intersect import near_cut
-from rays1bench_tpu_torch.render.pipeline import primary_rays
+from rays1bench_tpu_torch.render.pipeline import (primary_rays,
+                                                  primary_rays_from_ids)
 from rays1bench_tpu_torch.scene import builders
 from rays1bench_tpu_torch.scene.soa_spheres import COLUMNS
 from rays1bench_tpu_torch.scene.spheres import prepare
@@ -189,6 +193,14 @@ extern "C" void phase_rays(const float* sph, int S, float* state,
                   M, N, b0, bend, max_bounces, t_min, seed, take, any);
 }
 
+extern "C" void raygen_rays(const int* ray_id, int N, const float* cam,
+                            int width, int spp, uint32_t seed, float inv_w,
+                            float inv_h, float* const* ray) {
+  for (int i = 0; i < N; ++i)
+    r1b::id_ray(cam, ray_id[i], width, spp, seed, inv_w, inv_h, ray[0][i],
+                ray[1][i], ray[2][i], ray[3][i], ray[4][i], ray[5][i]);
+}
+
 extern "C" void index_rays(const float* const* col, int S,
                            const float* const* ray, int N, float t_min,
                            int* idx, uint8_t* hit) {
@@ -242,6 +254,7 @@ def host_lib(tmp_path_factory):
                                  f, f, i, p, p, p, p, p, p]
     lib.oneshot_rays.restype = ctypes.c_ulonglong
     lib.index_rays.argtypes = [p, i, p, i, f, p, p]
+    lib.raygen_rays.argtypes = [p, i, p, i, i, ctypes.c_uint32, f, f, p]
     lib.phase_rays.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, f,
                                ctypes.c_uint32, i, p]
     return lib
@@ -278,6 +291,36 @@ def test_respawn_lane_equals_plain_version(host_lib, scene, w, h, spp, mb,
     assert (int(cnt.sum()) == 0) == (span[0] == span[1])
 
 
+@pytest.mark.parametrize("w,h,spp,seed,ids", [
+    (64, 36, 10, 0, "frame"),
+    (161, 93, 3, 2 ** 31 + 12345, "frame"),     # odd size, a large seed
+    (40, 24, 4, 7, "padded slice, shuffled"),   # ids past the frame
+])
+def test_raygen_lane_equals_plain_version(host_lib, w, h, spp, seed, ids):
+    """r1b::id_ray, the raygen kernel's lane, over ray ids in ray-id order
+    or a rank's padded slice in a seeded shuffle: its six planes equal
+    primary_rays at the ids' pixel coordinates bit for bit."""
+    cfg = RenderConfig(width=w, height=h, spp=spp, seed=seed)
+    camera = builders.create_large_scene(cfg.aspect,
+                                         device="cpu").camera.build("cpu")
+    if ids == "frame":
+        ray_id = frame_ray_ids(cfg, "cpu")
+    else:
+        ray_id = shard.ray_slice(cfg, 7, 1, 6, 0, "cpu")
+        ray_id = ray_id[torch.randperm(ray_id.numel(),
+                                       generator=torch.Generator().
+                                       manual_seed(3))].contiguous()
+        assert int(ray_id.max()) >= cfg.num_primary_rays
+    pixel = ray_id // spp
+    want = primary_rays(camera, cfg, (pixel % w).float(),
+                        (pixel // w).float(), ray_id)
+    cam = megakernel.pack_camera(camera)
+    got = [torch.empty(ray_id.numel()) for _ in range(6)]
+    host_lib.raygen_rays(ptr(ray_id), ray_id.numel(), ptr(cam), w, spp, seed,
+                         1.0 / w, 1.0 / h, ptrs(got))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def soa_grads(soa, grads):
     """GRAD_ROWS cotangents chained onto the scene's float columns."""
     floats = [c for c in COLUMNS if c != "mat_type"]
@@ -296,9 +339,9 @@ def test_backward_lane_matches_backward_reference(host_lib, soft):
                        early_exit=False, soft_silhouette=soft)
     scene = builders.SCENES["small"](cfg.aspect, pad_multiple=8, device="cpu")
     prep = prepare(scene.spheres)
-    ray_id, x, y = ray_coords(cfg, "cpu")
-    rays = [r.contiguous() for r in primary_rays(scene.camera.build("cpu"),
-                                                 cfg, x, y, ray_id)]
+    ray_id = frame_ray_ids(cfg, "cpu")
+    rays = [r.contiguous() for r in primary_rays_from_ids(
+        scene.camera.build("cpu"), cfg, ray_id)]
     _, _, _, topo = megakernel.trace_topology(megakernel.pack_spheres(prep),
                                               *rays, ray_id, cfg)
     n = ray_id.numel()
@@ -334,8 +377,8 @@ def test_backward_lane_matches_backward_reference(host_lib, soft):
 def ragged_with_padding(cfg, scene, cut, pad):
     """The frame's primary rays less the last `cut`, then `pad` padding rays
     (ids >= cfg.num_primary_rays, planes copied from the first rays)."""
-    ray_id, x, y = ray_coords(cfg, "cpu")
-    rays = primary_rays(scene.camera.build("cpu"), cfg, x, y, ray_id)
+    ray_id = frame_ray_ids(cfg, "cpu")
+    rays = primary_rays_from_ids(scene.camera.build("cpu"), cfg, ray_id)
     keep = ray_id.numel() - cut
     rays = [torch.cat([r[:keep], r[:pad]]).contiguous() for r in rays]
     ids = torch.cat([ray_id[:keep], cfg.num_primary_rays + torch.arange(
@@ -400,9 +443,9 @@ def test_phase_lane_equals_plain_version(host_lib, scene, w, h, spp, mb,
     if ragged:
         rays, ray_id = ragged_with_padding(cfg, sc, cut=5, pad=7)
     else:
-        ray_id, x, y = ray_coords(cfg, "cpu")
-        rays = [r.contiguous() for r in primary_rays(
-            sc.camera.build("cpu"), cfg, x, y, ray_id)]
+        ray_id = frame_ray_ids(cfg, "cpu")
+        rays = [r.contiguous() for r in primary_rays_from_ids(
+            sc.camera.build("cpu"), cfg, ray_id)]
     n = ray_id.numel()
     rng = np.random.default_rng(3)
     for schedule in schedules:
@@ -524,11 +567,11 @@ def test_backward_lane_on_a_ray_trapped_between_two_spheres(host_lib):
         col[:len(hexes)] = torch.tensor([float.fromhex(h) for h in hexes])
         cols[c] = col
     soa = dataclasses.replace(scene.spheres, **cols)
-    ray_id, x, y = ray_coords(cfg, "cpu")
+    ray_id = frame_ray_ids(cfg, "cpu")
     sl = slice(TRAPPED_RAY, TRAPPED_RAY + 1)
     ids = ray_id[sl].contiguous()
-    rays = [r.contiguous() for r in primary_rays(
-        scene.camera.build("cpu"), cfg, x[sl], y[sl], ids)]
+    rays = [r.contiguous() for r in primary_rays_from_ids(
+        scene.camera.build("cpu"), cfg, ids)]
     cts = [torch.tensor([float.fromhex(h)]) for h in TRAPPED_CTS]
     prep = prepare(soa)
     _, cnt, topo = megakernel.trace_topology_reference(

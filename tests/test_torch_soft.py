@@ -65,7 +65,7 @@ from rays1bench_tpu_torch.kernels import mega_backward, megakernel
 from rays1bench_tpu_torch.kernels import pipeline as tkpipeline
 from rays1bench_tpu_torch.render import intersect as tintersect
 from rays1bench_tpu_torch.render import pipeline as tpipeline
-from rays1bench_tpu_torch.render.pipeline import primary_rays
+from rays1bench_tpu_torch.render.pipeline import primary_rays_from_ids
 from rays1bench_tpu_torch.scene import convert
 from rays1bench_tpu_torch.scene import spheres as tspheres
 from rays1bench_tpu_torch.scene.soa_spheres import COLUMNS
@@ -110,8 +110,8 @@ def case():
                                     "cpu")
     jimg, jn, jtopo = jkpipeline.render_image_pallas_topology(
         jscene.spheres, jcam, jcfg, interpret=True)
-    rid, x, y = tkpipeline.ray_coords(cfg, "cpu")
-    rays = [r.numpy() for r in primary_rays(cam, cfg, x, y, rid)]
+    rid = tkpipeline.frame_ray_ids(cfg, "cpu")
+    rays = [r.numpy() for r in primary_rays_from_ids(cam, cfg, rid)]
     cts = np.random.default_rng(4).uniform(-0.5, 0.5, (3, rid.shape[0]))
     cts = cts.astype(np.float32)
     jprep = jspheres.prepare(jscene.spheres)

@@ -4,8 +4,9 @@
   hands out one shared no-op; on or off, the engines run without their
   kIters instantiations.
 - Under torch.profiler a render records its spans with their parents and
-  frame ids, and the counters "rays" (the frame's total) and, for the
-  respawn engine, "warp_trips" (respawn_iters_reference of the frame's
+  frame ids, and the counters "rays" (the frame's total), for the other
+  engines "raygen_kernel_rays" (0: the CPU runs the plain raygen) and, for
+  the respawn engine, "warp_trips" (respawn_iters_reference of the frame's
   counts, taken when read); the other engines record no trips.
 - A session opened by session() or trace() starts an empty store, and so
   does a torch.profiler session after a span that found recording off.
@@ -130,6 +131,8 @@ def test_a_profiled_render_records_its_spans_and_counters(medium,
                    <= got[0].end_ns for s in got[1:])
     rays = profiling.counts("rays")
     assert rays == [(f, int(n)) for f, (_, n) in enumerate(on)]
+    # The CPU's frames run the plain raygen: the kernel made no rays.
+    assert profiling.counts("raygen_kernel_rays") == [(1, 0), (2, 0)]
     (frame, trips), = profiling.counts("warp_trips")
     assert frame == 0 and (rays[0][1], trips) == respawn_counts(medium)
 

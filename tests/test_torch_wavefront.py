@@ -36,7 +36,7 @@ from rays1bench_tpu.scene import spheres as jspheres
 from rays1bench_tpu_torch.core.config import RenderConfig
 from rays1bench_tpu_torch.kernels import megakernel
 from rays1bench_tpu_torch.kernels import pipeline as tpipeline
-from rays1bench_tpu_torch.render.pipeline import primary_rays
+from rays1bench_tpu_torch.render.pipeline import primary_rays_from_ids
 from rays1bench_tpu_torch.scene import builders as tbuilders
 from rays1bench_tpu_torch.scene import convert
 from rays1bench_tpu_torch.scene import spheres as tspheres
@@ -62,8 +62,8 @@ def jax_case(mb):
     jscene = jbuilders.create_small_scene(jcfg.aspect, pad_multiple=8)
     cam = convert.camera_from_numpy(
         leaves(jscene.camera.build(), convert.CAMERA_FIELDS), "cpu")
-    rid, x, y = tpipeline.ray_coords(cfg, "cpu")
-    rays = [r.numpy() for r in primary_rays(cam, cfg, x, y, rid)]
+    rid = tpipeline.frame_ray_ids(cfg, "cpu")
+    rays = [r.numpy() for r in primary_rays_from_ids(cam, cfg, rid)]
     jprep = jspheres.prepare(jscene.spheres)
     jargs = (jprep, *map(jnp.asarray, rays), jnp.asarray(rid.numpy()), jcfg)
     (wr, wg, wb), w_total = jmega.trace_pallas_wavefront(
@@ -93,8 +93,8 @@ def port_case(mb):
     cfg = RenderConfig(width=40, height=24, spp=4, max_bounces=mb, seed=3)
     scene = tbuilders.create_small_scene(cfg.aspect, pad_multiple=8,
                                          device="cpu")
-    rid, x, y = tpipeline.ray_coords(cfg, "cpu")
-    rays = primary_rays(scene.camera.build("cpu"), cfg, x, y, rid)
+    rid = tpipeline.frame_ray_ids(cfg, "cpu")
+    rays = primary_rays_from_ids(scene.camera.build("cpu"), cfg, rid)
     packed = megakernel.pack_spheres(tspheres.prepare(scene.spheres))
     rad, cnt, _ = megakernel.trace_topology_reference(packed, *rays, rid,
                                                       cfg)
